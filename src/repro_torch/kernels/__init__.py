@@ -1,0 +1,3 @@
+"""Hand-written Hopper kernels of the port, each with its plain PyTorch
+version beside it. Sources live under ``<kernel>/csrc/`` and are built at
+first use by :mod:`repro_torch.kernels.build`."""

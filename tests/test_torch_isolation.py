@@ -1,0 +1,42 @@
+"""The port and chip_smoke.py import neither jax nor the reference package."""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(mod.name)
+import chip_smoke
+chip_smoke.request_class()
+chip_smoke.k1_bound(32, 64, 48, 524288)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
+print("BAD", bad)
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT)])}
+    out = subprocess.run([sys.executable, "-c", PROBE], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=240)
+    assert out.returncode == 0, out.stderr
+    lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
+    assert int(lines["LOADED"]) >= 20  # every module of the port was imported
+    assert lines["BAD"] == "[]", lines["BAD"]
+
+
+def test_port_sources_name_no_jax_import():
+    files = list((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                top = words[1].split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), f"{path}: {line}"

@@ -1,0 +1,89 @@
+"""K1 (the CUDA kernel behind ``gf2_rs_matmul_bytes``) on the card, against
+its plain PyTorch version. Each test is marked ``cuda`` and skips where no
+CUDA card is present.
+
+This file imports neither jax nor the reference package, so it also runs on
+a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_kernel_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.coding import gf256, rs
+from repro_torch.coding.codec import Codec
+from repro_torch.kernels.gf2mm.gf2mm import gf2_rs_matmul_bytes
+from repro_torch.kernels.gf2mm.ref import gf2_rs_matmul_bytes_ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is false)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case(rng, batch, m, k, B, device):
+    mats = rng.integers(0, 256, (batch, m, k), dtype=np.uint8)
+    bitmats = torch.from_numpy(gf256.expand_bitmatrix_batched(mats)).to(device)
+    data = torch.from_numpy(rng.integers(0, 256, (batch, k, B), dtype=np.uint8)).to(device)
+    return bitmats, data
+
+
+@pytest.mark.parametrize("batch,m,k,B", [
+    (1, 1, 1, 1),
+    (3, 6, 6, 1001),       # ragged B: byte-wise edge everywhere
+    (2, 17, 3, 4101),      # m not a multiple of the 8-row tile, partial column block
+    (4, 8, 6, 16384),      # aligned: 16-byte loads and stores
+    (2, 128, 256, 4096),   # k = 256, the field's limit
+    (1, 256, 16, 160),     # 32 row tiles
+])
+def test_k1_matches_plain_version(cuda, batch, m, k, B):
+    rng = np.random.default_rng(batch * 1000 + m * 10 + k)
+    bitmats, data = _case(rng, batch, m, k, B, cuda)
+    before = gf2_rs_matmul_bytes.launches
+    got = gf2_rs_matmul_bytes(bitmats, data)
+    torch.cuda.synchronize()
+    assert gf2_rs_matmul_bytes.launches == before + 1
+    assert torch.equal(got, gf2_rs_matmul_bytes_ref(bitmats, data))
+
+
+def test_k1_misaligned_data_pointer(cuda):
+    """A contiguous view at an odd storage offset takes the byte-wise path."""
+    rng = np.random.default_rng(7)
+    bitmats, data = _case(rng, 2, 8, 6, 2048, cuda)
+    buf = torch.empty(data.numel() + 1, dtype=torch.uint8, device=cuda)
+    view = buf[1:].view(data.shape)
+    view.copy_(data)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 1
+    got = gf2_rs_matmul_bytes(bitmats, view)
+    assert torch.equal(got, gf2_rs_matmul_bytes_ref(bitmats, data))
+
+
+def test_k1_counts_entries_by_lowest_bit(cuda):
+    """bitmats entries other than 0/1 count by their lowest bit, like the
+    plain version's exact float32 sums reduced mod 2."""
+    rng = np.random.default_rng(8)
+    _, data = _case(rng, 2, 8, 6, 512, cuda)
+    bitmats = torch.from_numpy(rng.integers(0, 256, (2, 64, 48), dtype=np.uint8)).to(cuda)
+    got = gf2_rs_matmul_bytes(bitmats, data)
+    assert torch.equal(got, gf2_rs_matmul_bytes_ref(bitmats, data))
+
+
+def test_kernel_codec_on_card_matches_numpy_oracle(cuda):
+    rng = np.random.default_rng(9)
+    c = Codec("kernel", device=cuda)
+    for n, k in [(2, 1), (12, 6), (5, 4)]:
+        data = rng.integers(0, 256, (3, k, 777), dtype=np.uint8)
+        want = np.stack([rs.encode(data[i], n, k) for i in range(3)])
+        np.testing.assert_array_equal(c.encode(data, n, k), want)
+        present = np.stack([np.sort(rng.permutation(n)[:k]) for _ in range(3)])
+        rows = torch.from_numpy(np.stack([want[i][present[i]] for i in range(3)])).to(cuda)
+        got = c.decode(rows, present, n, k)
+        assert got.device.type == "cuda"
+        np.testing.assert_array_equal(got.cpu().numpy(), data)
