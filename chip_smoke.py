@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA card, and hold each of
-its CUDA kernels against its plain PyTorch version there.
+"""Drive the PyTorch port's paths on one NVIDIA card, and hold each of its
+CUDA kernels against its plain PyTorch version there.
 
 Usage, from the repository root, on a machine with one CUDA card (H100):
 
@@ -9,10 +9,16 @@ Usage, from the repository root, on a machine with one CUDA card (H100):
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. device — torch version and the card's name and power limit;
-2. build  — builds K1 (``gf2_rs_bytes.cu``) from the sources with nvcc;
+2. build  — builds K1 (``gf2_rs_bytes.cu``) and K2 (``gf2_matmul.cu``) from
+   the sources, one nvcc for each, started together;
 3. kernels — K1 against its plain version, byte for byte, at the main
    path's decode and encode shapes, a k=256 case and a ragged case; times
-   both at the decode shape (CUDA events, median of 20 runs);
+   both at the decode shape (CUDA events, median of 20 runs). K2 against its
+   plain version, byte for byte, at the (12, 6) code's bit-matrix encode of
+   one 3 MiB object, a (256, 128) code over 64 KiB strips, a ragged shape in
+   int8 and float32, and a transposed view; times kernel, plain version and
+   the library yardstick (``torch._int_mm``, or a bfloat16 product where
+   cuBLASLt refuses ``_int_mm``'s shape, plus a mask) at the first two;
 4. main path — the paper's §V-A deployment through the port's entry points:
    128 seeded 3 MiB objects written through the proxy (L = 16, (12, 6) strip
    code, feedback write policy), then 4 rounds of 32 raw reads decoded by
@@ -20,7 +26,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    held against the host TOFEC policy, then one fused encode round checked
    against the numpy codec, and one more fused decode under torch.profiler
    (device time by operation, the device's idle share); K1's launch counter
-   must show the codec work went through the kernel.
+   must show the codec work went through the kernel;
+5. K2 path — ``gf2_matmul``'s documented use through its entry point: the
+   (12, 6) code's parity bit-matrix times the LSB-first bitplanes of one
+   3 MiB object, repacked and checked against the numpy codec; K2's launch
+   counter must show it ran;
+6. fleet — the paper's Fig. 7 grid at full width through ``FleetSweep``:
+   8 rates × (TOFEC, fixed-k(6), the 27 static codes), 3,500 arrivals per
+   case, in 4 chunks of one bucket; each TOFEC row is held against the
+   numpy oracle on the same draws, the paper's orderings are asserted, and a
+   streamed run must equal the materialized one bit for bit; then one chunk
+   once more under torch.profiler (wall, device busy, idle share, device
+   kernels per scan step).
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``. Without a card it
@@ -47,6 +64,13 @@ INT8_OPS_PER_S = 1.979e15
 FILE_BYTES = 3 * 2**20
 K_MAX, R_MAX, L_THREADS = 6, 2, 16
 
+#: The Fig. 7 sweep (benchmarks/paper_figures.py, fig7_adaptive_tradeoff).
+FLEET_COUNT, FLEET_SEED, FLEET_CHUNK = 3500, 1, 64
+#: Reference values of that figure, from a JAX CPU run at 1,200 arrivals:
+#: printed beside the card's for the reader, never asserted.
+BASELINE_FLEET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks",
+                              "baselines", "BENCH_fleet.json")
+
 
 def request_class():
     from repro_torch.core import PAPER_READ_3MB, RequestClass
@@ -68,6 +92,16 @@ def k1_bound(batch: int, m8: int, k8: int, B: int) -> tuple[float, str]:
     vs the equivalent 0/1 int8 product's operations at the int8 peak."""
     nbytes = batch * m8 * k8 + batch * (k8 // 8) * B + batch * (m8 // 8) * B
     ops = 2.0 * batch * m8 * k8 * B
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k2_bound(M: int, K: int, N: int) -> tuple[float, str]:
+    """Least time (ms) the card needs for one K2 call and what bounds it:
+    each operand byte read once and each output byte written once over HBM,
+    vs the 0/1 int8 product's 2·M·K·N operations at the int8 peak."""
+    nbytes = M * K + K * N + M * N
+    ops = 2.0 * M * K * N
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -164,6 +198,291 @@ def check_k1(device, rng) -> dict:
         torch.cuda.empty_cache()
     if not rec["byte_equal"]:
         raise AssertionError(f"K1 disagrees with its plain version: {rec['cases']}")
+    return rec
+
+
+def k2_cases(device) -> list[tuple[str, "object", "object"]]:
+    """(label, A, B): K2's documented use — the (12, 6) code's parity
+    bit-matrix over the bitplanes of one 3 MiB object at the §V-A layout —,
+    a (256, 128) code over 64 KiB strips, a shape ragged on every dimension
+    in int8 and in float32, and a transposed (non-contiguous) B."""
+    import torch
+
+    from repro_torch.coding import gf256, rs
+
+    g = torch.Generator(device=device).manual_seed(2)
+
+    def bits(shape, dtype=torch.uint8):
+        return torch.randint(0, 2, shape, generator=g, device=device).to(dtype)
+
+    g2 = torch.from_numpy(gf256.expand_bitmatrix(rs.cauchy_parity_matrix(K_MAX * R_MAX, K_MAX)))
+    return [
+        ("encode", g2.to(device), bits((8 * K_MAX, FILE_BYTES // K_MAX))),
+        ("max_field", bits((1024, 1024)), bits((1024, 65_536))),
+        ("ragged_int8", bits((130, 200), torch.int8), bits((200, 513), torch.int8)),
+        ("ragged_float32", bits((130, 200), torch.float32), bits((200, 513), torch.float32)),
+        ("view", bits((96, 320)), bits((640, 320)).T),
+    ]
+
+
+def library_ms(a, b, want) -> tuple[float, str]:
+    """Time of one library product that computes K2's function, and its
+    name: ``torch._int_mm(a, b) & 1`` on int8 operands, or, where cuBLASLt
+    refuses ``_int_mm``'s shape, a bfloat16 product cast to uint8 and masked
+    (exact while K <= 256: every sum is an integer bfloat16 holds). The
+    operands are cast beforehand. It must agree with ``want``; it is timed
+    here and used nowhere else."""
+    import torch
+
+    a8, b8 = a.to(torch.int8).contiguous(), b.to(torch.int8).contiguous()
+    try:
+        torch._int_mm(a8, b8)
+        name, fn = "_int_mm & 1", lambda: torch._int_mm(a8, b8) & 1
+    except RuntimeError as exc:
+        print(f"[kernels] K2 library yardstick _int_mm refused {tuple(a.shape)} @ "
+              f"{tuple(b.shape)}: {str(exc).splitlines()[0]}", flush=True)
+        if a.shape[1] > 256:
+            raise AssertionError("no exact library product for K2 at this shape") from exc
+        a16, b16 = a.to(torch.bfloat16).contiguous(), b.to(torch.bfloat16).contiguous()
+        name, fn = "bf16 matmul & 1", lambda: (a16 @ b16).to(torch.uint8) & 1
+    if not torch.equal(fn().to(torch.uint8), want):
+        raise AssertionError(f"the library yardstick {name} disagrees with K2's plain version")
+    return median_ms(fn), name
+
+
+def check_k2(device) -> dict:
+    """K2 vs its plain version on every case; times at the encode and
+    max_field shapes (kernel, plain version, library yardstick)."""
+    import torch
+
+    from repro_torch.kernels.gf2mm.gf2mm import gf2_matmul
+    from repro_torch.kernels.gf2mm.ref import gf2_matmul_ref
+
+    rec = {"cases": {}, "max_abs_err": 0, "byte_equal": True}
+    for label, a, b in k2_cases(device):
+        got = gf2_matmul(a, b)
+        want = gf2_matmul_ref(a, b).to(torch.uint8)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+        case = {"shape": [list(a.shape), list(b.shape)], "dtype": str(a.dtype).split(".")[-1],
+                "b_contiguous": b.is_contiguous(), "byte_equal": equal, "max_abs_err": err}
+        print(f"[kernels] K2 {label}: {tuple(a.shape)} @ {tuple(b.shape)} {case['dtype']}"
+              f"{'' if b.is_contiguous() else ' (B a transposed view)'} byte_equal={equal} "
+              f"max_abs_err={err}", flush=True)
+        if label in ("encode", "max_field"):
+            case["ms"] = median_ms(lambda: gf2_matmul(a, b))
+            case["plain_ms"] = median_ms(lambda: gf2_matmul_ref(a, b), reps=5, warmup=1)
+            case["library_ms"], case["library_call"] = library_ms(a, b, want)
+            case["bound_ms"], case["bound_by"] = k2_bound(a.shape[0], a.shape[1], b.shape[1])
+            print(f"[kernels] K2 {label}: {case['ms']:.4f} ms kernel, {case['plain_ms']:.4f} ms "
+                  f"plain, library ({case['library_call']}) {case['library_ms']:.4f} ms, bound "
+                  f"{case['bound_ms']:.4f} ms ({case['bound_by']})", flush=True)
+        rec["cases"][label] = case
+        rec["byte_equal"] &= equal
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        del got, want
+        torch.cuda.empty_cache()
+    if not rec["byte_equal"]:
+        raise AssertionError(f"K2 disagrees with its plain version: {rec['cases']}")
+    for key in ("ms", "plain_ms", "library_ms", "library_call", "bound_ms", "bound_by"):
+        rec[key] = rec["cases"]["encode"][key]
+    return rec
+
+
+def run_k2_path(device, *, strip_bytes: int = FILE_BYTES // K_MAX, seed: int = 0) -> dict:
+    """K2's documented use through its entry point: the parity bitplanes of
+    one object, C2 = G2 @ D2 mod 2, for the (12, 6) code over LSB-first
+    bitplanes of 6 strips, repacked to bytes and checked against the numpy
+    codec's parity rows. Raises on any wrong byte."""
+    import torch
+
+    from repro_torch.coding import gf256, rs
+    from repro_torch.kernels.gf2mm.gf2mm import gf2_matmul
+    from repro_torch.kernels.gf2mm.ref import bitplanes_to_bytes_ref, bytes_to_bitplanes_ref
+
+    n, k = K_MAX * R_MAX, K_MAX
+    data = np.random.default_rng(seed).integers(0, 256, (k, strip_bytes), dtype=np.uint8)
+    g2 = torch.from_numpy(gf256.expand_bitmatrix(rs.cauchy_parity_matrix(n, k))).to(device)
+    t0 = time.monotonic()
+    planes = bytes_to_bitplanes_ref(torch.from_numpy(data).to(device))  # (8k, B) 0/1
+    parity = bitplanes_to_bytes_ref(gf2_matmul(g2, planes)).cpu().numpy()
+    wall_ms = (time.monotonic() - t0) * 1e3
+    if not np.array_equal(parity, rs.encode(data, n, k)[k:]):
+        raise AssertionError("K2 bit-matrix encode disagrees with the numpy codec")
+    print(f"[k2path] ({n}, {k}) parity of {k} x {strip_bytes} B through gf2_matmul: "
+          f"{wall_ms:.3f} ms wall (upload, unpack, K2, repack, download), matches the numpy "
+          "codec", flush=True)
+    return {"wall_ms": wall_ms, "shape": [list(g2.shape), list(planes.shape)]}
+
+
+def fleet_grid():
+    """The Fig. 7 grid: 8 rates from 0.1 to 0.92 of the basic (1, 1) code's
+    capacity × (TOFEC, fixed-k(6), every static (n, k) with k ≤ 6 and
+    k ≤ n ≤ min(2k, 12)) × seed 1, as benchmarks/common.py builds it."""
+    from repro_torch.core import PAPER_READ_3MB, queueing
+    from repro_torch.fleet import PolicySpec, grid_cases
+
+    cls_ = request_class()
+    cap = queueing.capacity(PAPER_READ_3MB, cls_.file_mb, 1, 1.0, L_THREADS)
+    rates = np.linspace(0.1 * cap, 0.92 * cap, 8)
+    statics = [(n, k) for k in range(1, K_MAX + 1)
+               for n in range(k, min(int(R_MAX * k), cls_.n_max) + 1)]
+    policies = [PolicySpec.tofec(), PolicySpec.fixedk(6)] + [
+        PolicySpec.static(n, k) for n, k in statics]
+    return grid_cases(rates, policies, [FLEET_SEED], cls_, L_THREADS)
+
+
+def check_tofec_rows(res, cases, count: int) -> dict:
+    """Every TOFEC row of a materialized sweep against the numpy oracle on
+    the same draws: picks equal on ≥ 0.999 of arrivals, delays within rtol
+    1e-4 / atol 1e-6 (the reference's scan regression tolerances)."""
+    import types
+
+    from repro_torch.core.fluid_scan import FluidScanParams, simulate_tofec_reference
+    from repro_torch.fleet import policy_tables
+
+    out = res.to_numpy()
+    worst = {"pick_agreement": 1.0, "max_rel_err": 0.0}
+    for i, case in enumerate(cases):
+        if case.policy.kind != "tofec":
+            continue
+        inter, exps = case.resolved_workload().device_arrays(
+            np.random.default_rng(case.seed), count, case.cls.n_max)
+        h_k, h_n, r_max = policy_tables(case.policy, case.cls, case.L)
+        ref = simulate_tofec_reference(
+            FluidScanParams.from_class(case.cls, case.L, case.policy.alpha),
+            types.SimpleNamespace(h_k=h_k, h_n=h_n, r_max=r_max), inter, exps)
+        agree = min(float((out[f][i] == ref[f]).mean()) for f in ("n", "k"))
+        if agree < 0.999:
+            raise AssertionError(f"fleet row {i} (λ={case.lam:.3f}): picks agree on {agree}")
+        for f in ("total", "queueing", "service"):
+            np.testing.assert_allclose(out[f][i], ref[f], rtol=1e-4, atol=1e-6,
+                                       err_msg=f"fleet row {i} (λ={case.lam:.3f}) {f}")
+            rel = np.abs(out[f][i] - ref[f]) / np.maximum(np.abs(ref[f]), 1e-6)
+            worst["max_rel_err"] = max(worst["max_rel_err"], float(rel.max()))
+        worst["pick_agreement"] = min(worst["pick_agreement"], agree)
+    return worst
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_fleet(device, *, count: int = FLEET_COUNT) -> dict:
+    """The Fig. 7 sweep on the card: materialized, reduced, held against the
+    oracle and the paper's orderings, then streamed and compared, and one
+    chunk profiled (on a CUDA device)."""
+    from repro_torch.fleet import (FleetSweep, capacity_estimates, convergence_stats,
+                                   frontier_points, headline_ratios)
+
+    cases = fleet_grid()
+    sweep = FleetSweep(chunk=FLEET_CHUNK, device=device)
+    n_max, hk_len = cases[0].cls.n_max, cases[0].cls.k_max + 1
+    key = sweep.bucket_key(len(cases), count, n_max, hk_len, n_max + 1)
+    t0 = time.monotonic()
+    res = sweep.run(cases, count)
+    _sync(device)
+    wall_s = time.monotonic() - t0
+    want_chunks = -(-len(cases) // FLEET_CHUNK)
+    rec = {"cases": len(cases), "count": count, "bucket_key": list(key), "wall_s": wall_s,
+           "chunks": res.launches, "bucket_uses": res.compiles}
+    print(f"[fleet] Fig. 7 grid: {len(cases)} cases x {count} arrivals, {res.launches} "
+          f"chunks (one scan loop of {count} steps each; its device kernels are in the "
+          f"[profile] line), {res.compiles} bucket use(s), key {key}, {wall_s:.3f} s wall "
+          f"({wall_s / res.launches:.3f} s per chunk)", flush=True)
+    if res.launches != want_chunks or res.compiles != 1:
+        raise AssertionError(f"expected {want_chunks} chunks in one bucket, got "
+                             f"{res.launches} chunks and {res.compiles} bucket uses")
+    t0 = time.monotonic()
+    pts = frontier_points(res)
+    rec["reduce_s"] = time.monotonic() - t0
+    caps, head = capacity_estimates(pts), headline_ratios(pts)
+    rec["headline"], rec["capacity_req_s"] = head, caps
+    with open(BASELINE_FLEET) as f:
+        base = {k: v["value"] for k, v in json.load(f)["metrics"].items()}
+    print(f"[fleet] frontier reduced in {rec['reduce_s']:.3f} s", flush=True)
+    for name in ("delay_gain_vs_basic", "capacity_gain_vs_latency_optimal",
+                 "tofec_light_mean", "basic_light_mean"):
+        print(f"[fleet] headline {name}: {head[name]!r} (JAX CPU baseline at 1,200 "
+              f"arrivals: {base.get('headline/' + name)!r})", flush=True)
+    print(f"[fleet] latency-optimal static: {head['latency_optimal_static']}", flush=True)
+    for name in sorted(caps):
+        print(f"[fleet] capacity {name}: {caps[name]!r} req/s (baseline "
+              f"{base.get('capacity_req_s/' + name)!r})", flush=True)
+
+    rec["oracle"] = check_tofec_rows(res, cases, count)
+    print(f"[fleet] TOFEC rows vs the numpy oracle: picks agree on >= "
+          f"{rec['oracle']['pick_agreement']:.6f}, max relative delay error "
+          f"{rec['oracle']['max_rel_err']:.3g}", flush=True)
+    if not (head["delay_gain_vs_basic"] > 1.5 and head["capacity_gain_vs_latency_optimal"] > 1.5
+            and caps["tofec"] > caps["static(12,6)"]):
+        raise AssertionError(f"the paper's ordering does not hold: {head}, {caps}")
+
+    t0 = time.monotonic()
+    streamed = sweep.run(cases, count, stream=True)
+    _sync(device)
+    rec["stream_wall_s"] = time.monotonic() - t0
+    same = ([p.to_dict() for p in frontier_points(streamed)] == [p.to_dict() for p in pts]
+            and convergence_stats(streamed) == convergence_stats(res))
+    print(f"[fleet] streamed run: {streamed.launches} chunks, {streamed.compiles} new bucket "
+          f"uses, {rec['stream_wall_s']:.3f} s wall, equal to the materialized run bit for bit: "
+          f"{same}", flush=True)
+    if not same:
+        raise AssertionError("the streamed sweep differs from the materialized one")
+    if device.type == "cuda":  # the profiler reads the card's timeline
+        rec["profile"] = profile_fleet_chunk(sweep, cases[:FLEET_CHUNK], count)
+    return rec
+
+
+def device_spans(prof):
+    """(busy ms, device events) of a profile: the union of the intervals of
+    its device-side events (kernels and copies)."""
+    from torch.autograd import DeviceType
+
+    events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in events):
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return busy_us / 1e3, events
+
+
+def profile_fleet_chunk(sweep, cases, count: int) -> dict:
+    """One chunk of the Fig. 7 sweep again, under torch.profiler: its host
+    wall time, the device's busy time and idle share, and the device kernels
+    it issues per scan step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        sweep.run(cases, count)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    busy_ms, events = device_spans(prof)
+    if busy_ms <= 0:
+        raise AssertionError("the profiler recorded no device time for the fleet chunk")
+    kernels = [ev for ev in events if not ev.name.startswith(("Memcpy", "Memset"))]
+    by_name: dict[str, list] = {}
+    for ev in kernels:
+        row = by_name.setdefault(ev.name, [ev.name, 0, 0.0])
+        row[1] += 1
+        row[2] += (ev.time_range.end - ev.time_range.start) / 1e3
+    rec = {"cases": len(cases), "count": count, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms, "device_kernels": len(kernels),
+           "kernels_per_step": len(kernels) / count, "copies": len(events) - len(kernels),
+           "top": sorted(by_name.values(), key=lambda r: -r[2])[:8]}
+    print(f"[profile] one fleet chunk ({len(cases)} cases x {count} steps) under the profiler: "
+          f"{wall_ms:.3f} ms wall, {busy_ms:.3f} ms device busy, idle share "
+          f"{rec['device_idle_share']:.4f}, {len(kernels)} device kernels in the chunk = "
+          f"{rec['kernels_per_step']:.2f} per scan step, {rec['copies']} copies", flush=True)
+    for name, n, ms in rec["top"]:
+        print(f"[profile]   {ms:10.4f} ms  x{n:<6d} {name[:100]}", flush=True)
     return rec
 
 
@@ -269,7 +588,6 @@ def profile_decode(step, rows, present, n: int, k: int, q: float) -> dict:
     its host wall time, the device time by operation (uploads, controller
     ops, K1, downloads) and the device's idle share of the call."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -279,21 +597,14 @@ def profile_decode(step, rows, present, n: int, k: int, q: float) -> dict:
         wall_ms = (time.monotonic() - t0) * 1e3
     # Device-side events only (kernels and copies): a CPU op's device time
     # repeats its kernels' time. Busy time is the union of their intervals.
-    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
-                   if ev.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for s, e in spans:
-        busy_us += max(0.0, e - max(s, end))
-        end = max(end, e)
-    busy_ms = busy_us / 1e3
+    busy_ms, events = device_spans(prof)
     if busy_ms <= 0:
         raise AssertionError("the profiler recorded no device time for the fused step")
     by_name: dict[str, list] = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            row = by_name.setdefault(ev.name, [ev.name, 0, 0.0])
-            row[1] += 1
-            row[2] += (ev.time_range.end - ev.time_range.start) / 1e3
+    for ev in events:
+        row = by_name.setdefault(ev.name, [ev.name, 0, 0.0])
+        row[1] += 1
+        row[2] += (ev.time_range.end - ev.time_range.start) / 1e3
     top = sorted(by_name.values(), key=lambda r: -r[2])
     rec = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": 1.0 - busy_ms / wall_ms, "top": top[:8], "pick": list(pick)}
@@ -321,15 +632,17 @@ def main() -> int:
     device = torch.device("cuda")
 
     t0 = time.monotonic()
-    gf2mm.load()
-    info = build.BUILD_INFO["gf2_rs_bytes"]
-    print(f"[build] K1 built in {info['seconds']:.2f} s (load {time.monotonic() - t0:.2f} s) "
-          f"-> {info['path']}", flush=True)
-    for line in info["log"].splitlines():
-        if "ptxas" in line:
-            print(f"[build] {line.strip()}", flush=True)
+    gf2mm.load_all()
+    print(f"[build] K1 and K2 built and loaded in {time.monotonic() - t0:.2f} s", flush=True)
+    for tag, name in (("K1", "gf2_rs_bytes"), ("K2", "gf2_matmul")):
+        info = build.BUILD_INFO[name]
+        print(f"[build] {tag} nvcc {info['seconds']:.2f} s -> {info['path']}", flush=True)
+        for line in info["log"].splitlines():
+            if "ptxas" in line:
+                print(f"[build] {tag} {line.strip()}", flush=True)
 
     k1 = check_k1(device, np.random.default_rng(1))
+    k2 = check_k2(device)
 
     gf2mm.gf2_rs_matmul_bytes.launches = 0
     main_rec = run_main_path(device)
@@ -340,6 +653,15 @@ def main() -> int:
           f"{main_rec['step_launches']} = {need})", flush=True)
     if launches < need or launches == 0:
         raise AssertionError(f"K1 launched {launches} times, expected at least {need}")
+
+    gf2mm.gf2_matmul.launches = 0
+    run_k2_path(device)
+    k2_launches = gf2mm.gf2_matmul.launches
+    print(f"[k2path] K2 launches on its path: {k2_launches}", flush=True)
+    if k2_launches == 0:
+        raise AssertionError("K2 was not launched on its path")
+
+    run_fleet(device)
 
     kernels = {"kernels": [{
         "name": "gf2_rs_matmul_bytes",
@@ -356,6 +678,21 @@ def main() -> int:
         "library_ms": None,
         "bmm_ms": k1["bmm_ms"],
         "cases": k1["cases"],
+    }, {
+        "name": "gf2_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/gf2mm/csrc/gf2_matmul.cu",
+        "replaces": "src/repro/kernels/gf2mm/gf2mm.py:77",
+        "launches": k2_launches,
+        "byte_equal": k2["byte_equal"],
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"],
+        "library_call": k2["library_call"],
+        "cases": k2["cases"],
     }]}
     print(nvidia_smi_line(), flush=True)
     print(json.dumps(kernels), flush=True)

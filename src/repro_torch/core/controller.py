@@ -228,8 +228,13 @@ def tofec_threshold_step(q_ewma: torch.Tensor, q, h_k: torch.Tensor, h_n: torch.
 
     Same semantics as :meth:`TOFECPolicy.select` (threshold search =
     1 + #{h > q̄} over the descending tables). ``r_max`` and ``alpha`` may be
-    Python floats or 0-d float32 tensors. Trailing zero entries in
+    Python floats or float32 tensors. Trailing zero entries in
     ``h_k``/``h_n`` are inert (0 > q̄ never holds for q̄ ≥ 0).
+
+    Batched over a leading grid axis: ``q_ewma``, ``q``, ``r_max`` and
+    ``alpha`` may be (G,) and the tables (G, len), one configuration per
+    row (the fluid scan's form); each row counts only its own thresholds.
+    With a 0-d ``q_ewma`` and 1-d tables it is the serving step's update.
 
     ``q_ewma < 0`` is the cold-start sentinel (carries initialize to -1.0):
     the first observation seeds the EWMA, matching the host policies'
@@ -237,8 +242,8 @@ def tofec_threshold_step(q_ewma: torch.Tensor, q, h_k: torch.Tensor, h_n: torch.
     """
     q = _f32(q, q_ewma.device)
     q_new = torch.where(q_ewma < 0.0, q, alpha * q + (1.0 - alpha) * q_ewma)
-    k = 1 + (h_k[1:] > q_new).sum().to(torch.int32)
-    n = 1 + (h_n[1:] > q_new).sum().to(torch.int32)
+    k = 1 + (h_k[..., 1:] > q_new[..., None]).sum(-1).to(torch.int32)
+    n = 1 + (h_n[..., 1:] > q_new[..., None]).sum(-1).to(torch.int32)
     n = torch.minimum((r_max * k).to(torch.int32), n)
     n = torch.maximum(n, k)
     return q_new, n, k

@@ -1,24 +1,61 @@
-"""Policies as threshold tables — the part of the fleet sweep the serving
-step needs.
+"""Fleet sweep: a whole (λ × policy × seed) grid per chunked device launch.
 
-The scan's controller is the threshold form ``1 + #{h > q̄}``;
-:func:`static_tables` and :func:`fixedk_tables` encode static (n, k) codes
-and the fixed-k adaptive strategy of [3] into the same (h_k, h_n, r_max)
-triple (sentinel-``BIG``/0 thresholds pin the choice), so
-:class:`repro_torch.serve.engine.ServePolicy` runs every threshold policy
-through one controller. These helpers are numpy-only copies of the reference
-package's ``repro/fleet/sweep.py``; its sweep engine is not ported yet.
+The port of the reference package's ``repro/fleet/sweep.py``. One grid
+point = one row of :func:`repro_torch.core.fluid_scan.tofec_scan_core`. The
+sweep stacks every per-point quantity — delay-model params, threshold
+tables, redundancy cap, arrival/exponential draws — along a leading grid
+axis and runs the scan over it, so a 256-point λ-sweep costs a handful of
+launches instead of 256 serial ones.
+
+Uniformity across the grid is manufactured, not assumed:
+
+* **Policies as tables.** The scan's controller is the threshold form
+  ``1 + #{h > q̄}``; :func:`static_tables` and :func:`fixedk_tables` encode
+  static (n, k) codes and the fixed-k adaptive strategy of [3] into the
+  same (h_k, h_n, r_max) triple (sentinel-``BIG``/0 thresholds pin the
+  choice), so heterogeneous policy mixes ride one launch — and
+  :class:`repro_torch.serve.engine.ServePolicy` runs every threshold policy
+  through one controller.
+* **Shape buckets.** Runs are keyed, as in the reference, on (chunk,
+  pow2-bucketed T, n_max, table lengths, mesh shape, timeline window);
+  trailing-zero threshold padding is semantically inert, so heterogeneous
+  grids share a bucket. PyTorch has no compilation to share: the first use
+  of each bucket is counted in ``stats.traces`` where the reference counts a
+  jit trace, which keeps the bound on buckets pinned. Nor does it need the
+  reference's zero-gap padding of the time axis up to the bucket's T: the
+  streams are exactly ``count`` arrivals wide.
+* **Memory-bounded chunked batching.** The grid axis is split into
+  ``chunk``-sized launches (the last chunk padded by repetition), bounding
+  the per-launch footprint at chunk × count × (n_max + 2) float32s.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
+import warnings
 
 import numpy as np
+import torch
 
+from repro_torch import obs, resolve_device
+from repro_torch.coding.codec import pow2_bucket
 from repro_torch.core.controller import BIG, FixedKAdaptivePolicy
 from repro_torch.core.delay_model import RequestClass
+from repro_torch.core.fluid_scan import PARAM_FIELDS, FluidScanParams, tofec_scan_core
 from repro_torch.core.static_optimizer import ClassPlan, build_class_plan
+from repro_torch.fleet.shard import StreamedStats, resolve_grid_mesh, resolve_stream
+from repro_torch.fleet.stats import class_params, convergence_reduce, frontier_block_reduce
+from repro_torch.fleet.workloads import PoissonWorkload, TenantMix, Workload
+
+#: Timeline slots per run (the reference's ``repro.obs.TIMELINE_SLOTS``); the
+#: bucket key's last entry is the window ``max(T_bucket // 64, 1)``.
+TIMELINE_SLOTS = 64
+
+
+def timeline_window(t_bucket: int) -> int:
+    """Window size (arrivals per timeline slot) for a pow2 time bucket."""
+    return max(int(t_bucket) // TIMELINE_SLOTS, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -65,7 +102,7 @@ class PolicySpec:
     ``greedy`` (§V-A idle-thread heuristic) is NOT table-expressible — it
     observes the instantaneous idle-thread count, which the fluid scan does
     not model. Greedy grid points only run on the exact task-level engine
-    (the reference package's ``repro.taskq.TaskqSweep``, not yet ported);
+    (the reference package's ``repro.taskq.TaskqSweep``, not ported yet);
     :func:`policy_tables` raises for them.
     """
 
@@ -120,3 +157,347 @@ def policy_tables(spec: PolicySpec, cls: RequestClass, L: int, plan: ClassPlan |
         )
     raise ValueError(f"unknown policy kind {spec.kind!r}")
 
+
+# ---------------------------------------------------------------------------
+# Grid construction
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepCase:
+    """One grid point: arrival process × policy × seed (× class, L)."""
+
+    lam: float
+    policy: PolicySpec
+    seed: int
+    cls: RequestClass
+    L: int = 16
+    workload: Workload | None = None  # default: Poisson(lam)
+
+    def resolved_workload(self) -> Workload:
+        return self.workload if self.workload is not None else PoissonWorkload(self.lam)
+
+
+def grid_cases(
+    lams,
+    policies,
+    seeds,
+    cls: RequestClass,
+    L: int = 16,
+    workload_for=None,
+) -> list[SweepCase]:
+    """Cartesian λ × policy × seed grid; ``workload_for(lam)`` optionally
+    maps each rate to a non-Poisson workload spec."""
+    return [
+        SweepCase(
+            lam=float(lam), policy=pol, seed=int(seed), cls=cls, L=L,
+            workload=workload_for(float(lam)) if workload_for else None,
+        )
+        for lam in lams
+        for pol in policies
+        for seed in seeds
+    ]
+
+
+def tenant_cases(
+    mix: TenantMix, policies, seeds, L: int = 16, *, quiet: bool = False
+) -> list[SweepCase]:
+    """Expand a multi-tenant mix into per-class grid points (Poisson
+    splitting): each class rides the sweep with its own tables and its
+    split rate w·λ.
+
+    .. note:: This is the **approximation path**: splitting gives every
+       class an independent fluid queue that believes it owns all L
+       threads, so cross-class interference (§IV's shared-resource story)
+       is invisible. The joint shared-pool simulation is the reference
+       package's ``repro.sched`` (not ported yet); pass ``quiet=True`` when
+       the fluid split is wanted deliberately.
+    """
+    if not quiet:
+        warnings.warn(
+            "tenant_cases() Poisson-splits the mix into independent per-class "
+            "fluid queues and cannot show cross-class interference; the joint "
+            "shared-pool simulation (repro.sched in the reference package) is "
+            "not ported yet. Pass quiet=True to keep the fluid split "
+            "deliberately.",
+            UserWarning,
+            stacklevel=2,
+        )
+    return [
+        SweepCase(lam=sub.lam, policy=pol, seed=int(seed), cls=c, L=L, workload=sub)
+        for c, sub in mix.split()
+        for pol in policies
+        for seed in seeds
+    ]
+
+
+# ---------------------------------------------------------------------------
+# The chunked sweep engine
+# ---------------------------------------------------------------------------
+
+
+class ChunkedSweep:
+    """Chunked, shape-bucketed case sweeps on one device (the reference's
+    ``ChunkedVmapSweep``).
+
+    Owns the bucket cache (first use of a bucket counts in
+    ``stats.traces``), the per-(class, L) plan cache, and the chunked launch
+    loop (tail chunk padded by repetition, outputs sliced back and
+    restacked). Subclasses define the bucket key, the per-case config
+    stacking and the launch body.
+
+    ``chunk`` bounds the grid points per launch (memory bound). ``mesh``
+    must be None or 1 (one card; see
+    :func:`repro_torch.fleet.shard.resolve_grid_mesh`). ``device`` is where
+    the launches run (default ``cuda``).
+    """
+
+    def __init__(self, *, chunk: int = 64, mesh=None, device=None):
+        if chunk < 1:
+            raise ValueError("chunk must be >= 1")
+        self.chunk = chunk
+        self.mesh = resolve_grid_mesh(mesh)
+        self.device = resolve_device(device)
+        self.stats = obs.CompileStats(label=f"sweep.{type(self).__name__}")
+        self._fns: dict[tuple, object] = {}
+        self._plans: dict[tuple, ClassPlan] = {}
+
+    @property
+    def mesh_shape(self) -> tuple:
+        """Device-mesh shape key: () on the single-device path."""
+        return ()
+
+    def _chunk_bucket(self, n_cases: int) -> int:
+        """Effective per-launch chunk: pow2-bucketed grid size capped at
+        ``chunk``."""
+        return min(pow2_bucket(n_cases), self.chunk)
+
+    def _build(self, key: tuple):
+        raise NotImplementedError
+
+    def _fn_for(self, key: tuple):
+        """The launch body of a bucket; its first use counts in ``traces``."""
+        fn = self._fns.get(key)
+        if fn is None:
+            by_mesh = self.stats.by_mesh
+            self.stats.traces += 1
+            by_mesh[self.mesh_shape] = by_mesh.get(self.mesh_shape, 0) + 1
+            fn = self._fns[key] = self._build(key)
+        return fn
+
+    def _plan_for(self, cls: RequestClass, L: int, eq7_factor: float) -> ClassPlan:
+        key = (cls, L, eq7_factor)
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = self._plans[key] = build_class_plan(cls, L, eq7_factor=eq7_factor)
+        return plan
+
+    def _launch_chunks(self, fn, cfg, streams, G: int, chunk: int, count: int, fold=None):
+        """ceil(G / chunk) launches over (cfg, *streams); returns the stacked
+        (G, count) output dict (on the device). Tail-chunk rows are
+        repetitions of row ``lo`` and sliced off before stacking, so padding
+        never leaks.
+
+        ``streams`` is a callable ``(idx) -> tuple of (chunk, ...) numpy
+        blocks`` generating one chunk's host-side streams on demand from the
+        padded case-index array: host memory never holds more than one chunk
+        of workload draws.
+
+        ``fold`` streams: called per launch as ``fold(out, cfg_np,
+        streams_np)`` with the chunk's (chunk, count) outputs, it returns
+        fixed-size per-row statistics which are stacked *instead of* the raw
+        block, so a streamed sweep never materializes O(G × T).
+        """
+        outs = []
+        engine = type(self).__name__
+        dev = self.device
+        idx = np.empty(chunk, np.intp)  # preallocated chunk-gather indices
+        for lo in range(0, G, chunk):
+            hi = min(lo + chunk, G)
+            with obs.span("sweep.chunk", engine=engine, rows=hi - lo):
+                idx[: hi - lo] = np.arange(lo, hi)
+                idx[hi - lo:] = lo  # pad the tail chunk by repetition
+                with obs.span("sweep.hostgen", engine=engine):
+                    cfg_np = {name: v[idx] for name, v in cfg.items()}
+                    streams_np = streams(idx)
+                with obs.span("sweep.launch", engine=engine):
+                    out = fn({name: torch.from_numpy(v).to(dev) for name, v in cfg_np.items()},
+                             *(torch.from_numpy(s).to(dev) for s in streams_np), count)
+                self.stats.launches += 1
+                if fold is None:
+                    outs.append({name: v[: hi - lo] for name, v in out.items()})
+                else:
+                    with obs.span("sweep.fold", engine=engine):
+                        red = fold(out, cfg_np, streams_np)
+                    outs.append({name: v[: hi - lo] for name, v in red.items()})
+                del out
+        self.stats.cases += G
+        return {name: torch.cat([o[name] for o in outs]) for name in outs[0]}
+
+
+def frontier_fold(w: int, bins: int):
+    """Per-chunk streaming fold for fleet-style (single-class) sweeps.
+
+    Runs the SAME reductions the materialized frontier uses
+    (:func:`repro_torch.fleet.stats.frontier_block_reduce` for the
+    delay/usage statistics, :func:`repro_torch.fleet.stats.convergence_reduce`
+    for the adaptation integers) on one (chunk, count) block at a time, so
+    the streamed statistics are bit-exact equals of the materialized ones.
+    ``w`` is the warmup cut, ``bins`` any bound exceeding every chosen k.
+    """
+
+    def fold(out, cfg_np, streams_np):
+        red = dict(frontier_block_reduce(out, *class_params(cfg_np, out["total"].device), w=w))
+        red.update(convergence_reduce(out["k"], w=w, bins=bins))
+        return red
+
+    return fold
+
+
+@dataclasses.dataclass
+class SweepResult:
+    """Stacked per-request outputs for every grid point.
+
+    ``out`` holds tensors of shape (G, count) on the sweep's device:
+    ``total``/``queueing``/``service`` delays (float32) and the chosen
+    ``n``/``k`` (int32), reduced there by :mod:`repro_torch.fleet.frontier`.
+    ``cfg`` is the stacked per-case config (params + tables, numpy).
+
+    A **streamed** run (``run(..., stream=...)``) never materializes the
+    (G, count) block: ``out`` is empty and ``streamed`` carries the running
+    frontier reduction (:class:`repro_torch.fleet.shard.StreamedStats`).
+    """
+
+    cases: list[SweepCase]
+    out: dict
+    cfg: dict[str, np.ndarray]
+    count: int
+    compiles: int  # bucket first uses in this run (the reference's jit traces)
+    launches: int
+    streamed: object = None  # StreamedStats for streamed runs
+    mesh_shape: tuple = ()
+
+    def to_numpy(self) -> dict[str, np.ndarray]:
+        return {k: v.cpu().numpy() for k, v in self.out.items()}
+
+
+class FleetSweep(ChunkedSweep):
+    """Chunked, shape-bucketed sweep over :class:`SweepCase` grids."""
+
+    #: Floor of the pow2 time-axis bucket (the reference's default).
+    T_FLOOR = 512
+
+    # -- bucket cache -------------------------------------------------------
+
+    def bucket_key(self, n_cases: int, count: int, n_max: int, hk_len: int, hn_len: int):
+        """The bucket a run with these shapes lands in (the reference's
+        compilation-cache key, unchanged)."""
+        t_b = pow2_bucket(count, self.T_FLOOR)
+        return (
+            self._chunk_bucket(n_cases),
+            t_b,
+            n_max,
+            hk_len,
+            hn_len,
+            self.mesh_shape,
+            timeline_window(t_b),
+        )
+
+    def _build(self, key: tuple):
+        n_max = key[2]
+
+        def launch(cfg, inter, exps, count):
+            p = types.SimpleNamespace(**{f: cfg[f] for f in PARAM_FIELDS})
+            return tofec_scan_core(p, cfg["h_k"], cfg["h_n"], cfg["r_max"], inter, exps,
+                                   n_max=n_max)
+
+        return launch
+
+    # -- the sweep ----------------------------------------------------------
+
+    def _stack_cfg(self, cases: list[SweepCase], hk_len: int, hn_len: int):
+        G = len(cases)
+        cfg = {name: np.empty(G, np.float32) for name in (*PARAM_FIELDS, "r_max")}
+        cfg["h_k"] = np.zeros((G, hk_len), np.float32)
+        cfg["h_n"] = np.zeros((G, hn_len), np.float32)
+        for i, case in enumerate(cases):
+            plan = (
+                self._plan_for(case.cls, case.L, case.policy.eq7_factor)
+                if case.policy.kind == "tofec" else None
+            )
+            h_k, h_n, r_max = policy_tables(case.policy, case.cls, case.L, plan)
+            row = FluidScanParams.from_class(case.cls, case.L, case.policy.alpha).row()
+            for name, v in row.items():
+                cfg[name][i] = v
+            cfg["r_max"][i] = r_max
+            # Trailing zeros are inert thresholds (0 > q̄ never holds), so
+            # shorter per-class tables pad into the shared bucket for free.
+            cfg["h_k"][i, : len(h_k)] = h_k
+            cfg["h_n"][i, : len(h_n)] = h_n
+        return cfg
+
+    def run(self, cases: list[SweepCase], count: int, *, stream=None) -> SweepResult:
+        """Evaluate every grid point over ``count`` arrivals.
+
+        Host side: per-case RNG streams generate the workload arrays (the
+        reference's streams, draw for draw). Device side: ceil(G / chunk)
+        launches of the scan.
+
+        ``stream`` (True or a :class:`repro_torch.fleet.shard.StreamSpec`)
+        folds each chunk into running frontier statistics instead of
+        stacking the raw (G, count) block.
+
+        The device telemetry planes (``REPRO_OBS=1``: per-case metrics and
+        timelines) are not ported yet (``ROADMAP.md`` item 11), so a run
+        with telemetry on raises instead of running without what was asked.
+        """
+        if not cases:
+            raise ValueError("empty case grid")
+        if obs.enabled():
+            raise RuntimeError(
+                "REPRO_OBS is on, but the sweep's device telemetry planes (metrics and "
+                "timelines) are not ported yet (ROADMAP.md item 11); unset REPRO_OBS "
+                "to run the sweep")
+        spec = resolve_stream(stream)
+        traces0, launches0 = self.stats.traces, self.stats.launches
+        n_max = max(c.cls.n_max for c in cases)
+        hk_len = max(c.cls.k_max for c in cases) + 1
+        hn_len = n_max + 1
+        key = self.bucket_key(len(cases), count, n_max, hk_len, hn_len)
+        chunk = key[0]
+        cfg = self._stack_cfg(cases, hk_len, hn_len)
+
+        # The reference pads the time axis to the bucket's T with zero gaps
+        # and slices their outputs off; the scan is causal, so here the
+        # streams are ``count`` wide and the padding is never built.
+        def chunk_streams(idx):
+            inter = np.empty((len(idx), count), np.float32)
+            exps = np.zeros((len(idx), count, n_max), np.float32)
+            for j, i in enumerate(idx):
+                if j and i == idx[0]:  # tail pad: repeat the chunk's row 0
+                    inter[j], exps[j] = inter[0], exps[0]
+                    continue
+                case = cases[i]
+                rng = np.random.default_rng(case.seed)
+                it, ex = case.resolved_workload().device_arrays(rng, count, case.cls.n_max)
+                inter[j] = it
+                # Classes with smaller n_max leave trailing Exp columns at
+                # zero; the scan masks draws at j >= k, so padding never
+                # enters.
+                exps[j, :, : case.cls.n_max] = ex
+            return inter, exps
+
+        fn = self._fn_for(key)
+        fold = frontier_fold(int(count * spec.warmup_frac), hn_len) if spec else None
+        stacked = self._launch_chunks(fn, cfg, chunk_streams, len(cases), chunk, count,
+                                      fold=fold)
+        return SweepResult(
+            cases=list(cases),
+            out={} if spec else stacked,
+            cfg=cfg,
+            count=count,
+            compiles=self.stats.traces - traces0,
+            launches=self.stats.launches - launches0,
+            streamed=StreamedStats(spec.warmup_frac, count, stacked) if spec else None,
+            mesh_shape=self.mesh_shape,
+        )

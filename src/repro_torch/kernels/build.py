@@ -10,6 +10,8 @@ unchanged one loads the library already built. A process-wide lock serializes
 builds (the proxy's admit-loop thread and the caller's thread can both reach
 the first launch), and each library is written under a temporary name and
 renamed into place, so concurrent processes never load a half-written file.
+:func:`load_libraries` starts one nvcc for each library still to build, all
+together, and waits for them all.
 """
 
 from __future__ import annotations
@@ -51,29 +53,41 @@ def nvcc_path() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
-def load_library(name: str, source: pathlib.Path) -> ctypes.CDLL:
-    """Compile ``source`` (once per content hash) and load it."""
+def load_libraries(sources: dict[str, pathlib.Path]) -> dict[str, ctypes.CDLL]:
+    """Compile each source (once per content hash), one nvcc for each,
+    started together, and load them all; returns name -> library."""
     with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is not None:
-            return lib
-        src = source.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = BUILD_DIR / f"lib{name}-{tag}.so"
-        info = {"seconds": 0.0, "log": "", "path": str(out)}
-        if not out.exists():
+        procs = {}
+        for name, source in sources.items():
+            if name in _LIBS:
+                continue
+            src = source.read_bytes()
+            tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            out = BUILD_DIR / f"lib{name}-{tag}.so"
+            BUILD_INFO[name] = {"seconds": 0.0, "log": "", "path": str(out)}
+            if out.exists():
+                _LIBS[name] = ctypes.CDLL(str(out))
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
             cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-            t0 = time.monotonic()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            info["seconds"] = time.monotonic() - t0
-            info["log"] = proc.stdout + proc.stderr
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                            text=True), time.monotonic(), tmp, out)
+        failed = []
+        for name, (proc, t0, tmp, out) in procs.items():
+            log = proc.communicate()[0]
+            BUILD_INFO[name].update(seconds=time.monotonic() - t0, log=log)
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed for {source} (exit {proc.returncode}):\n"
-                                   f"{info['log']}")
+                failed.append(f"nvcc failed for {sources[name]} (exit {proc.returncode}):\n{log}")
+                continue
             os.replace(tmp, out)
-        lib = _LIBS[name] = ctypes.CDLL(str(out))
-        BUILD_INFO[name] = info
-        return lib
+            _LIBS[name] = ctypes.CDLL(str(out))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return {name: _LIBS[name] for name in sources}
+
+
+def load_library(name: str, source: pathlib.Path) -> ctypes.CDLL:
+    """Compile ``source`` (once per content hash) and load it."""
+    return load_libraries({name: source})[name]

@@ -1,16 +1,19 @@
-"""K1: the batched, fused GF(2) Reed-Solomon product on raw bytes.
+"""The GF(2) kernels: K1 and K2.
 
-:func:`gf2_rs_matmul_bytes` is the port of the reference package's TPU
-kernel ``repro/kernels/gf2mm/gf2mm.py::gf2_rs_matmul_bytes``: per-item
-GF(2)-expanded coding matrices times raw byte strips, bytes in and bytes
-out, with the bitplane unpack and repack fused into one kernel. Every
-encode and decode of the codec's ``kernel`` backend, and so of the proxy
-and the fused serving step, goes through it.
+* K1, :func:`gf2_rs_matmul_bytes`, is the port of the reference package's
+  TPU kernel ``repro/kernels/gf2mm/gf2mm.py::gf2_rs_matmul_bytes``:
+  per-item GF(2)-expanded coding matrices times raw byte strips, bytes in
+  and bytes out, with the bitplane unpack and repack fused into one kernel.
+  Every encode and decode of the codec's ``kernel`` backend, and so of the
+  proxy and the fused serving step, goes through it.
+* K2, :func:`gf2_matmul`, is the port of ``gf2mm.py::gf2_matmul``: (A @ B)
+  mod 2 for 0/1 matrices, the classic bit-matrix encode on bitplanes the
+  caller packs and unpacks.
 
-On a CUDA tensor it launches the hand-written Hopper kernel in
-``csrc/gf2_rs_bytes.cu`` (design and bound are described there) or raises;
-on a CPU tensor it runs the plain version
-:func:`repro_torch.kernels.gf2mm.ref.gf2_rs_matmul_bytes_ref`.
+On a CUDA tensor each wrapper launches its hand-written Hopper kernel
+(``csrc/gf2_rs_bytes.cu``, ``csrc/gf2_matmul.cu``; design and bound are
+described there) or raises; on a CPU tensor it runs the plain version in
+:mod:`repro_torch.kernels.gf2mm.ref`.
 """
 
 from __future__ import annotations
@@ -22,21 +25,44 @@ import threading
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.gf2mm.ref import gf2_rs_matmul_bytes_ref
+from repro_torch.kernels.gf2mm.ref import gf2_matmul_ref, gf2_rs_matmul_bytes_ref
 
-SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "gf2_rs_bytes.cu"
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: library name -> (C entry point, its argument types); source csrc/<name>.cu
+KERNELS = {
+    "gf2_rs_bytes": ("gf2_rs_bytes_launch", [_PTR, _PTR, _PTR, _INT, _INT, _INT, _LL, _PTR]),
+    "gf2_matmul": ("gf2_matmul_launch", [_PTR, _PTR, _PTR, _INT, _INT, _LL, _PTR]),
+}
 _COUNT_LOCK = threading.Lock()
 
 
-def load() -> ctypes.CDLL:
-    """Build (at first use) and load the K1 library; returns it."""
-    lib = build.load_library("gf2_rs_bytes", SOURCE)
-    fn = lib.gf2_rs_bytes_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+def load_all(names=tuple(KERNELS)) -> dict[str, ctypes.CDLL]:
+    """Build (at first use, one nvcc for each, started together) and load
+    the named kernel libraries; returns name -> library."""
+    libs = build.load_libraries({name: CSRC / f"{name}.cu" for name in names})
+    for name, lib in libs.items():
+        entry, argtypes = KERNELS[name]
+        fn = getattr(lib, entry)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return libs
+
+
+def load(name: str = "gf2_rs_bytes") -> ctypes.CDLL:
+    """Build (at first use) and load one kernel library (K1 by default);
+    returns it."""
+    return load_all((name,))[name]
+
+
+def _launch(name: str, *args) -> None:
+    """Call a kernel's C entry point on the current stream; raise on a
+    refused launch."""
+    lib = load(name)
+    rc = getattr(lib, KERNELS[name][0])(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
 def _check(bitmats: torch.Tensor, data: torch.Tensor) -> None:
@@ -82,16 +108,58 @@ def gf2_rs_matmul_bytes(bitmats: torch.Tensor, data: torch.Tensor) -> torch.Tens
     out = torch.empty((batch, M8 // 8, B), dtype=torch.uint8, device=data.device)
     if out.numel() == 0:
         return out
-    lib = load()
     with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        rc = lib.gf2_rs_bytes_launch(bitmats.data_ptr(), data.data_ptr(), out.data_ptr(),
-                                     batch, M8, k, B, stream)
-    if rc != 0:
-        raise RuntimeError(f"gf2_rs_bytes kernel launch failed: cudaError {rc}")
+        _launch("gf2_rs_bytes", bitmats.data_ptr(), data.data_ptr(), out.data_ptr(),
+                batch, M8, k, B)
     with _COUNT_LOCK:
         gf2_rs_matmul_bytes.launches += 1
     return out
 
 
 gf2_rs_matmul_bytes.launches = 0
+
+
+def gf2_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=torch.uint8) -> torch.Tensor:
+    """(A @ B) mod 2 for 0/1 matrices. A: (M, K), B: (K, N) -> (M, N).
+
+    Inputs may be any integer, float or bool dtype holding 0/1 values, on one
+    device. On a CUDA tensor both are cast to uint8 and made contiguous (a
+    transposed or sliced view is fine), and the kernel runs; each entry
+    counts by its lowest bit, the exact mod-2 value for integer inputs. On a
+    CPU tensor the plain version :func:`ref.gf2_matmul_ref` runs. The result
+    has ``out_dtype`` (default uint8).
+
+    The reference's ``block_m``/``block_n``/``block_k`` (TPU VMEM tile
+    sizes) and ``interpret`` (the Pallas interpreter) have no counterpart
+    here: the kernel picks its own tiles and masks its own ragged edges.
+    ``launches`` counts kernel launches (CPU calls do not count).
+    """
+    for name, x in (("a", a), ("b", b)):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(x).__name__}")
+        if x.ndim != 2:
+            raise ValueError(f"{name} must have rank 2, got shape {tuple(x.shape)}")
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(f"bad shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    if a.device != b.device:
+        raise ValueError(f"a on {a.device} but b on {b.device}")
+    if a.device.type == "cpu":
+        return gf2_matmul_ref(a, b).to(out_dtype)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    a8 = a.to(torch.uint8).contiguous()
+    b8 = b.to(torch.uint8).contiguous()
+    (M, K), N = a8.shape, b8.shape[1]
+    if M > 2**31 - 1 or K > 2**31 - 1:
+        raise ValueError(f"M and K must fit in int32, got {M}, {K}")
+    out = torch.empty((M, N), dtype=torch.uint8, device=a.device)
+    if out.numel() == 0:
+        return out.to(out_dtype)
+    with torch.cuda.device(a.device):
+        _launch("gf2_matmul", a8.data_ptr(), b8.data_ptr(), out.data_ptr(), M, K, N)
+    with _COUNT_LOCK:
+        gf2_matmul.launches += 1
+    return out if out_dtype == torch.uint8 else out.to(out_dtype)
+
+
+gf2_matmul.launches = 0

@@ -1,5 +1,5 @@
-"""K1 (the CUDA kernel behind ``gf2_rs_matmul_bytes``) on the card, against
-its plain PyTorch version. Each test is marked ``cuda`` and skips where no
+"""K1 and K2 (the CUDA kernels behind ``gf2_rs_matmul_bytes`` and
+``gf2_matmul``) on the card, against their plain PyTorch versions. Each test is marked ``cuda`` and skips where no
 CUDA card is present.
 
 This file imports neither jax nor the reference package, so it also runs on
@@ -14,8 +14,8 @@ import torch
 
 from repro_torch.coding import gf256, rs
 from repro_torch.coding.codec import Codec
-from repro_torch.kernels.gf2mm.gf2mm import gf2_rs_matmul_bytes
-from repro_torch.kernels.gf2mm.ref import gf2_rs_matmul_bytes_ref
+from repro_torch.kernels.gf2mm.gf2mm import gf2_matmul, gf2_rs_matmul_bytes
+from repro_torch.kernels.gf2mm.ref import gf2_matmul_ref, gf2_rs_matmul_bytes_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -87,3 +87,35 @@ def test_kernel_codec_on_card_matches_numpy_oracle(cuda):
         got = c.decode(rows, present, n, k)
         assert got.device.type == "cuda"
         np.testing.assert_array_equal(got.cpu().numpy(), data)
+
+
+# K2 at the cases chip_smoke.py checks: the (12, 6) code's parity bit-matrix
+# over the bitplanes of one 3 MiB object, a (256, 128) code over 64 KiB
+# strips, and a shape ragged on every dimension in two input dtypes.
+@pytest.mark.parametrize("M,K,N,dtype", [
+    (48, 48, 524_288, torch.uint8),
+    (1024, 1024, 65_536, torch.uint8),
+    (130, 200, 513, torch.int8),
+    (130, 200, 513, torch.float32),
+])
+def test_k2_matches_plain_version(cuda, M, K, N, dtype):
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    a = torch.randint(0, 2, (M, K), generator=g, device=cuda).to(dtype)
+    b = torch.randint(0, 2, (K, N), generator=g, device=cuda).to(dtype)
+    before = gf2_matmul.launches
+    got = gf2_matmul(a, b)
+    torch.cuda.synchronize()
+    assert gf2_matmul.launches == before + 1
+    assert got.dtype == torch.uint8 and got.shape == (M, N)
+    assert torch.equal(got, gf2_matmul_ref(a, b).to(torch.uint8))
+
+
+def test_k2_transposed_view_and_out_dtype(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randint(0, 2, (96, 320), generator=g, device=cuda, dtype=torch.uint8)
+    bt = torch.randint(0, 2, (640, 320), generator=g, device=cuda, dtype=torch.uint8)
+    before = gf2_matmul.launches
+    got = gf2_matmul(a, bt.T, out_dtype=torch.int32)
+    assert gf2_matmul.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, gf2_matmul_ref(a, bt.T))

@@ -1,7 +1,10 @@
-"""The port's gf2mm kernel module on the CPU: the K1 wrapper (which runs its
-plain version on CPU tensors) against the reference's Pallas kernel in
-interpret mode, the other plain versions against the reference's oracles,
-the wrapper's input checks, and no silent CPU fallback."""
+"""The port's gf2mm kernel module on the CPU: the K1 and K2 wrappers (which
+run their plain versions on CPU tensors) against the reference's Pallas
+kernels in interpret mode, the other plain versions against the reference's
+oracles, the wrappers' input checks, and no silent CPU fallback.
+
+Tolerance: none. Every comparison is exact (mod-2 and GF(256) products).
+"""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +17,7 @@ from repro.kernels.gf2mm import ops as ref_ops
 from repro.kernels.gf2mm import ref as ref_ref
 from repro_torch.coding import rs
 from repro_torch.kernels.gf2mm import ops, ref
-from repro_torch.kernels.gf2mm.gf2mm import gf2_rs_matmul_bytes
+from repro_torch.kernels.gf2mm.gf2mm import gf2_matmul, gf2_rs_matmul_bytes
 
 # (k, 8m, B, batch): a spread over k ∈ {1, 3, 6, 16}, 8m ∈ {8, 48, 64, 136},
 # B ∈ {57, 128, 700}, batch ∈ {1, 3}, kept small because each case runs the
@@ -49,6 +52,63 @@ def test_k1_equals_reference_pallas_kernel(k, m8, B, batch):
     assert got.dtype == torch.uint8 and got.shape == (batch, m8 // 8, B)
     np.testing.assert_array_equal(got.numpy(), want)
     assert gf2_rs_matmul_bytes.launches == before  # the CPU path launches nothing
+
+
+# The shape × dtype grid of the reference's own K2 test.
+K2_SHAPES = [(8, 8, 16), (48, 48, 256), (128, 128, 128), (130, 200, 513), (256, 2048, 1024)]
+
+
+@pytest.mark.parametrize("M,K,N", K2_SHAPES)
+@pytest.mark.parametrize("in_dtype", [np.uint8, np.int8, np.float32])
+def test_k2_equals_reference_pallas_kernel(M, K, N, in_dtype):
+    rng = np.random.default_rng(M * 7 + K * 3 + N)
+    a = rng.integers(0, 2, size=(M, K)).astype(in_dtype)
+    b = rng.integers(0, 2, size=(K, N)).astype(in_dtype)
+    want = np.asarray(ref_gf2mm.gf2_matmul(jnp.asarray(a), jnp.asarray(b), interpret=True))
+    before = gf2_matmul.launches
+    got = gf2_matmul(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.uint8 and got.shape == (M, N)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert gf2_matmul.launches == before  # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("bm,bn,bk", [(128, 128, 128), (128, 256, 256), (256, 512, 128)])
+def test_k2_equals_reference_at_every_reference_block_shape(bm, bn, bk):
+    """The reference's block sweep: only the reference's TPU tiles vary; the
+    port has no tile arguments, and its result must not move."""
+    rng = np.random.default_rng(bm + bn + bk)
+    M, K, N = 96, 320, 640
+    a = rng.integers(0, 2, size=(M, K), dtype=np.uint8)
+    b = rng.integers(0, 2, size=(K, N), dtype=np.uint8)
+    want = ref_gf2mm.gf2_matmul(jnp.asarray(a), jnp.asarray(b), block_m=bm, block_n=bn,
+                                block_k=bk, interpret=True)
+    np.testing.assert_array_equal(gf2_matmul(torch.from_numpy(a), torch.from_numpy(b)).numpy(),
+                                  np.asarray(want))
+
+
+def test_k2_views_and_out_dtype():
+    """A transposed (non-contiguous) operand, and the out_dtype argument, as
+    in the reference's ``out_dtype``."""
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 2, size=(40, 24), dtype=np.uint8)
+    bt = rng.integers(0, 2, size=(72, 24), dtype=np.uint8)  # B stored transposed
+    b = torch.from_numpy(bt).T
+    assert not b.is_contiguous()
+    want = np.asarray(ref_gf2mm.gf2_matmul(jnp.asarray(a), jnp.asarray(bt.T), out_dtype=jnp.int32,
+                                           interpret=True))
+    got = gf2_matmul(torch.from_numpy(a), b, out_dtype=torch.int32)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("a,b,exc", [
+    (np.zeros((2, 2), np.uint8), torch.zeros(2, 2), TypeError),
+    (torch.zeros(2, 2, 2), torch.zeros(2, 2), ValueError),
+    (torch.zeros(2, 3), torch.zeros(2, 2), ValueError),
+])
+def test_k2_wrapper_rejects_bad_inputs(a, b, exc):
+    with pytest.raises(exc):
+        gf2_matmul(a, b)
 
 
 def test_plain_versions_equal_reference_oracles():
