@@ -16,9 +16,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    both at the decode shape (CUDA events, median of 20 runs). K2 against its
    plain version, byte for byte, at the (12, 6) code's bit-matrix encode of
    one 3 MiB object, a (256, 128) code over 64 KiB strips, a ragged shape in
-   int8 and float32, and a transposed view; times kernel, plain version and
-   the library yardstick (``torch._int_mm``, or a bfloat16 product where
-   cuBLASLt refuses ``_int_mm``'s shape, plus a mask) at the first two;
+   int8 and float32, a transposed view, a deep K (64, 4096) @ (4096, 4096)
+   and B at a pointer that is not 16-byte aligned; times kernel, plain
+   version and the library yardstick (``torch._int_mm``, or a bfloat16
+   product where cuBLASLt refuses ``_int_mm``'s shape, plus a mask) at the
+   first two, and prints the kernel's time as a multiple of its bound and
+   of the yardstick; the ``[build] K2 ptxas`` lines give its registers and
+   shared memory;
 4. main path — the paper's §V-A deployment through the port's entry points:
    128 seeded 3 MiB objects written through the proxy (L = 16, (12, 6) strip
    code, feedback write policy), then 4 rounds of 32 raw reads decoded by
@@ -205,7 +209,9 @@ def k2_cases(device) -> list[tuple[str, "object", "object"]]:
     """(label, A, B): K2's documented use — the (12, 6) code's parity
     bit-matrix over the bitplanes of one 3 MiB object at the §V-A layout —,
     a (256, 128) code over 64 KiB strips, a shape ragged on every dimension
-    in int8 and in float32, and a transposed (non-contiguous) B."""
+    in int8 and in float32, a transposed (non-contiguous) B, a deep K over
+    32 k-tiles, and B as a contiguous view one byte into a flat buffer (not
+    16-byte aligned: the byte-wise path)."""
     import torch
 
     from repro_torch.coding import gf256, rs
@@ -216,12 +222,17 @@ def k2_cases(device) -> list[tuple[str, "object", "object"]]:
         return torch.randint(0, 2, shape, generator=g, device=device).to(dtype)
 
     g2 = torch.from_numpy(gf256.expand_bitmatrix(rs.cauchy_parity_matrix(K_MAX * R_MAX, K_MAX)))
+    buf = torch.empty(48 * 4096 + 1, dtype=torch.uint8, device=device)
+    misaligned = buf[1:].view(48, 4096)
+    misaligned.copy_(bits((48, 4096)))
     return [
         ("encode", g2.to(device), bits((8 * K_MAX, FILE_BYTES // K_MAX))),
         ("max_field", bits((1024, 1024)), bits((1024, 65_536))),
         ("ragged_int8", bits((130, 200), torch.int8), bits((200, 513), torch.int8)),
         ("ragged_float32", bits((130, 200), torch.float32), bits((200, 513), torch.float32)),
         ("view", bits((96, 320)), bits((640, 320)).T),
+        ("deep_k", bits((64, 4096)), bits((4096, 4096))),
+        ("misaligned", g2.to(device), misaligned),
     ]
 
 
@@ -277,7 +288,9 @@ def check_k2(device) -> dict:
             case["bound_ms"], case["bound_by"] = k2_bound(a.shape[0], a.shape[1], b.shape[1])
             print(f"[kernels] K2 {label}: {case['ms']:.4f} ms kernel, {case['plain_ms']:.4f} ms "
                   f"plain, library ({case['library_call']}) {case['library_ms']:.4f} ms, bound "
-                  f"{case['bound_ms']:.4f} ms ({case['bound_by']})", flush=True)
+                  f"{case['bound_ms']:.4f} ms ({case['bound_by']}); kernel = "
+                  f"{case['ms'] / case['bound_ms']:.2f}x bound, "
+                  f"{case['ms'] / case['library_ms']:.3f}x library", flush=True)
         rec["cases"][label] = case
         rec["byte_equal"] &= equal
         rec["max_abs_err"] = max(rec["max_abs_err"], err)

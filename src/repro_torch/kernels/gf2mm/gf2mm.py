@@ -129,9 +129,21 @@ def gf2_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=torch.uint8) -> to
     CPU tensor the plain version :func:`ref.gf2_matmul_ref` runs. The result
     has ``out_dtype`` (default uint8).
 
+    The kernel (``csrc/gf2_matmul.cu``) replaces the reference's TPU kernel
+    ``repro/kernels/gf2mm/gf2mm.py::gf2_matmul`` (:77, body :60-74). It runs
+    on the int8 tensor cores: ``mma.sync`` m16n8k32 u8·u8→s32 on 0/1 bytes
+    (every operand word masked to its lowest bits) from K-major shared
+    tiles, B transposed with ``prmt`` on its way in, A by a ``cp.async``
+    double buffer, 128 × 128 output blocks and k-tiles of 128, and
+    ``acc & 1`` out. Its bounds on an H100: 0.0150 ms at the encode shape
+    (48, 48) @ (48, 524,288) (bytes), 0.0694 ms at (1024, 1024) @
+    (1024, 65,536) (operations).
+
     The reference's ``block_m``/``block_n``/``block_k`` (TPU VMEM tile
     sizes) and ``interpret`` (the Pallas interpreter) have no counterpart
-    here: the kernel picks its own tiles and masks its own ragged edges.
+    here: the kernel picks its own tiles and masks its own ragged edges
+    (byte-wise paths where K or N is not a multiple of 16 or a pointer is
+    not 16-byte aligned; nothing padded in device memory).
     ``launches`` counts kernel launches (CPU calls do not count).
     """
     for name, x in (("a", a), ("b", b)):

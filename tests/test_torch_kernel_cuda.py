@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.coding import gf256, rs
 from repro_torch.coding.codec import Codec
+from repro_torch.kernels.gf2mm import gf2mm
 from repro_torch.kernels.gf2mm.gf2mm import gf2_matmul, gf2_rs_matmul_bytes
 from repro_torch.kernels.gf2mm.ref import gf2_matmul_ref, gf2_rs_matmul_bytes_ref
 
@@ -89,19 +90,35 @@ def test_kernel_codec_on_card_matches_numpy_oracle(cuda):
         np.testing.assert_array_equal(got.cpu().numpy(), data)
 
 
-# K2 at the cases chip_smoke.py checks: the (12, 6) code's parity bit-matrix
-# over the bitplanes of one 3 MiB object, a (256, 128) code over 64 KiB
-# strips, and a shape ragged on every dimension in two input dtypes.
-@pytest.mark.parametrize("M,K,N,dtype", [
-    (48, 48, 524_288, torch.uint8),
-    (1024, 1024, 65_536, torch.uint8),
-    (130, 200, 513, torch.int8),
-    (130, 200, 513, torch.float32),
+# K2 at the cases chip_smoke.py checks — the (12, 6) code's parity
+# bit-matrix over the bitplanes of one 3 MiB object, a (256, 128) code over
+# 64 KiB strips, a shape ragged on every dimension in two input dtypes — and
+# at the tensor-core kernel's edges: K not a multiple of 16, 32 or the
+# 128-deep k-tile, a deep K over 32 k-tiles, M of 1, 17 and 48 rows of one
+# 128-row block, N = 513 (byte-wise B and out), K = 0, and entries beyond
+# 0/1 that count by their lowest bit (int8 in -3..3, uint8 in 0..255).
+@pytest.mark.parametrize("M,K,N,dtype,lo,hi", [
+    (48, 48, 524_288, torch.uint8, 0, 2),
+    (1024, 1024, 65_536, torch.uint8, 0, 2),
+    (130, 200, 513, torch.int8, 0, 2),
+    (130, 200, 513, torch.float32, 0, 2),
+    (64, 33, 1024, torch.uint8, 0, 2),
+    (100, 200, 4096, torch.uint8, 0, 2),
+    (64, 4096, 4096, torch.uint8, 0, 2),
+    (1, 256, 2048, torch.uint8, 0, 2),
+    (17, 96, 640, torch.uint8, 0, 2),
+    (48, 48, 8192, torch.uint8, 0, 2),
+    (40, 64, 513, torch.uint8, 0, 2),
+    (5, 0, 100, torch.uint8, 0, 2),
+    (130, 200, 513, torch.int8, -3, 4),
+    (96, 256, 2048, torch.int8, -3, 4),
+    (130, 200, 513, torch.uint8, 0, 256),
+    (96, 256, 2048, torch.uint8, 0, 256),
 ])
-def test_k2_matches_plain_version(cuda, M, K, N, dtype):
-    g = torch.Generator(device=cuda).manual_seed(M + K + N)
-    a = torch.randint(0, 2, (M, K), generator=g, device=cuda).to(dtype)
-    b = torch.randint(0, 2, (K, N), generator=g, device=cuda).to(dtype)
+def test_k2_matches_plain_version(cuda, M, K, N, dtype, lo, hi):
+    g = torch.Generator(device=cuda).manual_seed(M + K + N + lo)
+    a = torch.randint(lo, hi, (M, K), generator=g, device=cuda).to(dtype)
+    b = torch.randint(lo, hi, (K, N), generator=g, device=cuda).to(dtype)
     before = gf2_matmul.launches
     got = gf2_matmul(a, b)
     torch.cuda.synchronize()
@@ -119,3 +136,29 @@ def test_k2_transposed_view_and_out_dtype(cuda):
     assert gf2_matmul.launches == before + 1
     assert got.dtype == torch.int32
     assert torch.equal(got, gf2_matmul_ref(a, bt.T))
+
+
+@pytest.mark.parametrize("M,K,N", [(48, 48, 4096), (130, 200, 1024)])
+def test_k2_misaligned_pointers(cuda, M, K, N):
+    """B as a contiguous (K, N) view one byte into a flat buffer, through the
+    wrapper; then B and out both one byte in, through the C entry point (the
+    wrapper allocates its own aligned out). Both take the byte-wise path."""
+    g = torch.Generator(device=cuda).manual_seed(11 + K)
+    a = torch.randint(0, 2, (M, K), generator=g, device=cuda, dtype=torch.uint8)
+    b = torch.randint(0, 2, (K, N), generator=g, device=cuda, dtype=torch.uint8)
+    want = gf2_matmul_ref(a, b).to(torch.uint8)
+    buf = torch.empty(K * N + 1, dtype=torch.uint8, device=cuda)
+    view = buf[1:].view(K, N)
+    view.copy_(b)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 1
+    before = gf2_matmul.launches
+    got = gf2_matmul(a, view)
+    torch.cuda.synchronize()
+    assert gf2_matmul.launches == before + 1
+    assert torch.equal(got, want)
+    obuf = torch.zeros(M * N + 1, dtype=torch.uint8, device=cuda)
+    out = obuf[1:].view(M, N)
+    assert out.data_ptr() % 16 == 1
+    gf2mm._launch("gf2_matmul", a.data_ptr(), view.data_ptr(), out.data_ptr(), M, K, N)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and int(obuf[0]) == 0

@@ -72,6 +72,28 @@ def test_k2_equals_reference_pallas_kernel(M, K, N, in_dtype):
     assert gf2_matmul.launches == before  # the CPU path launches nothing
 
 
+@pytest.mark.parametrize("M,K,N,in_dtype,lo,hi", [
+    (8, 8, 16, np.int8, -3, 4),
+    (48, 48, 256, np.int8, -3, 4),
+    (130, 200, 513, np.int8, -3, 4),
+    (8, 8, 16, np.uint8, 0, 256),
+    (48, 48, 256, np.uint8, 0, 256),
+    (130, 200, 513, np.uint8, 0, 256),
+])
+def test_k2_counts_entries_by_lowest_bit(M, K, N, in_dtype, lo, hi):
+    """Integer entries beyond 0/1 count by their lowest bit, in the port as
+    in the reference. The reference's bf16 products and float32 sums stay
+    exact here: K ≤ 200, so every sum is at most 200 · 255² < 2**24."""
+    rng = np.random.default_rng(M * 11 + K + N + hi)
+    a = rng.integers(lo, hi, size=(M, K)).astype(in_dtype)
+    b = rng.integers(lo, hi, size=(K, N)).astype(in_dtype)
+    want = np.asarray(ref_gf2mm.gf2_matmul(jnp.asarray(a), jnp.asarray(b), interpret=True))
+    got = gf2_matmul(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_array_equal(got.numpy(), want)
+    low = (a.astype(np.int64) & 1) @ (b.astype(np.int64) & 1) & 1
+    np.testing.assert_array_equal(got.numpy(), low)
+
+
 @pytest.mark.parametrize("bm,bn,bk", [(128, 128, 128), (128, 256, 256), (256, 512, 128)])
 def test_k2_equals_reference_at_every_reference_block_shape(bm, bn, bk):
     """The reference's block sweep: only the reference's TPU tiles vary; the
