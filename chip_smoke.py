@@ -12,8 +12,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build  — builds K1 (``gf2_rs_bytes.cu``) and K2 (``gf2_matmul.cu``) from
    the sources, one nvcc for each, started together;
 3. kernels — K1 against its plain version, byte for byte, at the main
-   path's decode and encode shapes, a k=256 case and a ragged case; times
-   both at the decode shape (CUDA events, median of 20 runs). K2 against its
+   path's decode and encode shapes (batch 32), the write path's encode of
+   128 objects (checked in slices of 32), a k=256 case, a ragged case, each
+   k in 1-5, 7-9 and m = 17; times it at the decode, encode and batch-128
+   encode shapes, per call (CUDA events around one call, median of 20) and
+   back to back (events around 10 calls, divided by 10, median of 20), each
+   as a multiple of its bound, and the plain version at the decode shape;
+   the ``[build] K1 ptxas`` lines give its registers and spills. K2 against its
    plain version, byte for byte, at the (12, 6) code's bit-matrix encode of
    one 3 MiB object, a (256, 128) code over 64 KiB strips, a ragged shape in
    int8 and float32, a transposed view, a deep K (64, 4096) @ (4096, 4096)
@@ -90,14 +95,20 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip()
 
 
-def k1_bound(batch: int, m8: int, k8: int, B: int) -> tuple[float, str]:
-    """Least time (ms) the card needs for one K1 call and what bounds it:
-    each input byte read once and each output byte written once over HBM,
-    vs the equivalent 0/1 int8 product's operations at the int8 peak."""
+def k1_bound_parts(batch: int, m8: int, k8: int, B: int) -> tuple[float, float]:
+    """(bytes ms, operations ms) of one K1 call: each input byte read once and
+    each output byte written once over HBM, and the equivalent 0/1 int8
+    product's operations at the int8 peak."""
     nbytes = batch * m8 * k8 + batch * (k8 // 8) * B + batch * (m8 // 8) * B
     ops = 2.0 * batch * m8 * k8 * B
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+
+
+def k1_bound(batch: int, m8: int, k8: int, B: int) -> tuple[float, str]:
+    """Least time (ms) the card needs for one K1 call and what bounds it:
+    the larger of :func:`k1_bound_parts`."""
+    t_bytes, t_ops = k1_bound_parts(batch, m8, k8, B)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def k2_bound(M: int, K: int, N: int) -> tuple[float, str]:
@@ -128,8 +139,40 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def back_to_back_ms(fn, calls: int = 10, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn`` with calls queued back to back:
+    CUDA events around ``calls`` consecutive calls, divided by ``calls``,
+    median of ``reps``. The wrapper's host work overlaps the queued device
+    work, so it stays out of the window unless it is longer."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+#: K1 cases timed as well as checked: the main path's decode and encode at
+#: batch 32, and the write path's batched encode of 128 objects.
+K1_TIMED = ("decode", "encode", "encode128")
+#: Data rows of the k cases: every step plan of the kernel's register path
+#: (k ≤ 8) and the shared-tile path (k = 9).
+K1_KS = (1, 2, 3, 4, 5, 7, 8, 9)
+
+
 def k1_cases(device, rng) -> list[tuple[str, "object", "object"]]:
-    """(label, bitmats, data) at the main path's shapes and two edge cases."""
+    """(label, bitmats, data) at the main path's shapes (decode and encode at
+    batch 32, encode at batch 128), k = 256, a ragged B, each k of
+    ``K1_KS`` and m = 17 (B = 4,176: a masked last warp step)."""
     import torch
 
     from repro_torch.coding import gf256, rs
@@ -150,18 +193,27 @@ def k1_cases(device, rng) -> list[tuple[str, "object", "object"]]:
     data = up(rng.integers(0, 256, (batch, k, B), dtype=np.uint8))
     wide = rng.integers(0, 256, (2, 128, 256), dtype=np.uint8)
     ragged = rng.integers(0, 256, (3, 6, 6), dtype=np.uint8)
-    return [
+    cases = [
         ("decode", up(gf256.expand_bitmatrix_batched(dec)), data),
         ("encode", up(gf256.expand_bitmatrix_batched(enc)), data),
+        ("encode128", up(gf256.expand_bitmatrix_batched(np.repeat(enc, 4, axis=0))),
+         up(rng.integers(0, 256, (4 * batch, k, B), dtype=np.uint8))),
         ("wide_k256", up(gf256.expand_bitmatrix_batched(wide)),
          up(rng.integers(0, 256, (2, 256, 4096), dtype=np.uint8))),
         ("ragged", up(gf256.expand_bitmatrix_batched(ragged)),
          up(rng.integers(0, 256, (3, 6, 1001), dtype=np.uint8))),
     ]
+    for kk, m in [(kk, 8) for kk in K1_KS] + [(K_MAX, 17)]:
+        mats = rng.integers(0, 256, (2, m, kk), dtype=np.uint8)
+        cases.append((f"k{kk}_m{m}", up(gf256.expand_bitmatrix_batched(mats)),
+                      up(rng.integers(0, 256, (2, kk, 4176), dtype=np.uint8))))
+    return cases
 
 
 def check_k1(device, rng) -> dict:
-    """K1 vs its plain version on every case; times at the decode shape."""
+    """K1 vs its plain version on every case (batches above 32 in slices of
+    32: the plain version's float32 planes would need tens of GB); times at
+    the decode and encode shapes, per call and back to back."""
     import torch
 
     from repro_torch.kernels.gf2mm.gf2mm import gf2_rs_matmul_bytes
@@ -170,21 +222,32 @@ def check_k1(device, rng) -> dict:
     rec = {"cases": {}, "max_abs_err": 0, "byte_equal": True}
     for label, bitmats, data in k1_cases(device, rng):
         got = gf2_rs_matmul_bytes(bitmats, data)
-        want = gf2_rs_matmul_bytes_ref(bitmats, data)
-        torch.cuda.synchronize()
-        equal = bool(torch.equal(got, want))
-        err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
-        rec["cases"][label] = {"shape": [list(bitmats.shape), list(data.shape)],
-                               "byte_equal": equal, "max_abs_err": err}
+        equal, err = True, 0
+        for i in range(0, bitmats.shape[0], 32):
+            want = gf2_rs_matmul_bytes_ref(bitmats[i:i + 32], data[i:i + 32])
+            part = got[i:i + 32]
+            equal &= bool(torch.equal(part, want))
+            err = max(err, int((part.to(torch.int16) - want.to(torch.int16)).abs().max()))
+            del want
+        case = {"shape": [list(bitmats.shape), list(data.shape)], "byte_equal": equal,
+                "max_abs_err": err}
+        rec["cases"][label] = case
         rec["byte_equal"] &= equal
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         print(f"[kernels] K1 {label}: bitmats {tuple(bitmats.shape)} data "
               f"{tuple(data.shape)} byte_equal={equal} max_abs_err={err}", flush=True)
+        del got
+        torch.cuda.empty_cache()
+        if label not in K1_TIMED:
+            continue
+        batch, m8, k8 = bitmats.shape
+        B = data.shape[2]
+        case["ms"] = median_ms(lambda: gf2_rs_matmul_bytes(bitmats, data))
+        case["b2b_ms"] = back_to_back_ms(lambda: gf2_rs_matmul_bytes(bitmats, data))
+        case["bound_ms"], case["bound_by"] = k1_bound(batch, m8, k8, B)
+        case["bytes_bound_ms"], case["ops_bound_ms"] = k1_bound_parts(batch, m8, k8, B)
         if label == "decode":
-            batch, m8, k8 = bitmats.shape
-            B = data.shape[2]
-            rec["ms"] = median_ms(lambda: gf2_rs_matmul_bytes(bitmats, data))
-            rec["plain_ms"] = median_ms(lambda: gf2_rs_matmul_bytes_ref(bitmats, data))
+            case["plain_ms"] = median_ms(lambda: gf2_rs_matmul_bytes_ref(bitmats, data))
             # Yardstick only: the float32 bmm at the heart of the plain
             # version, on planes unpacked beforehand (no unpack, mod 2 or
             # repack) — not the same function, so it is not library_ms.
@@ -192,16 +255,21 @@ def check_k1(device, rng) -> dict:
             planes = ((data[:, :, None, :] >> shifts[None, None, :, None]) & 1)
             planes = planes.reshape(batch, k8, B).to(torch.float32)
             bm32 = bitmats.to(torch.float32)
-            rec["bmm_ms"] = median_ms(lambda: torch.bmm(bm32, planes))
+            case["bmm_ms"] = median_ms(lambda: torch.bmm(bm32, planes))
             del planes, bm32
-            rec["bound_ms"], rec["bound_by"] = k1_bound(batch, m8, k8, B)
-            print(f"[kernels] K1 decode shape: {rec['ms']:.4f} ms kernel, "
-                  f"{rec['plain_ms']:.4f} ms plain, {rec['bmm_ms']:.4f} ms float32 bmm, "
-                  f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})", flush=True)
-        del got, want
-        torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
+            print(f"[kernels] K1 decode: {case['plain_ms']:.4f} ms plain, "
+                  f"{case['bmm_ms']:.4f} ms float32 bmm (yardstick)", flush=True)
+        print(f"[kernels] K1 {label}: {case['ms']:.4f} ms per call "
+              f"({case['ms'] / case['bound_ms']:.2f}x bound), {case['b2b_ms']:.4f} ms back to "
+              f"back ({case['b2b_ms'] / case['bound_ms']:.2f}x bound); bound "
+              f"{case['bound_ms']:.4f} ms ({case['bound_by']}; bytes "
+              f"{case['bytes_bound_ms']:.4f}, operations {case['ops_bound_ms']:.4f})", flush=True)
     if not rec["byte_equal"]:
         raise AssertionError(f"K1 disagrees with its plain version: {rec['cases']}")
+    for key in ("ms", "b2b_ms", "plain_ms", "bmm_ms", "bound_ms", "bound_by", "bytes_bound_ms",
+                "ops_bound_ms"):
+        rec[key] = rec["cases"]["decode"][key]
     return rec
 
 
@@ -690,6 +758,11 @@ def main() -> int:
         "bound_by": k1["bound_by"],
         "library_ms": None,
         "bmm_ms": k1["bmm_ms"],
+        "b2b_ms": k1["b2b_ms"],
+        "ms_over_bound": k1["ms"] / k1["bound_ms"],
+        "b2b_over_bound": k1["b2b_ms"] / k1["bound_ms"],
+        "bytes_bound_ms": k1["bytes_bound_ms"],
+        "ops_bound_ms": k1["ops_bound_ms"],
         "cases": k1["cases"],
     }, {
         "name": "gf2_matmul",

@@ -1,5 +1,5 @@
-"""The port, chip_smoke.py and k2_ablation.py import neither jax nor the reference
-package."""
+"""The port, chip_smoke.py, k1_ablation.py and k2_ablation.py import neither jax
+nor the reference package."""
 
 import os
 import pathlib
@@ -16,6 +16,7 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 import chip_smoke
 chip_smoke.request_class()
 chip_smoke.k1_bound(32, 64, 48, 524288)
+import k1_ablation
 import k2_ablation
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -35,8 +36,8 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 
 def test_port_sources_name_no_jax_import():
-    files = list((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                                 ROOT / "k2_ablation.py"]
+    files = list((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "k1_ablation.py", ROOT / "k2_ablation.py"]
     for path in files:
         for line in path.read_text().splitlines():
             words = line.split()

@@ -36,6 +36,11 @@ def _case(rng, batch, m, k, B, device):
     return bitmats, data
 
 
+# The tensor-core kernel's paths: k <= 8 holds A in registers with k32 steps
+# and a k16 step for k % 4 in {1, 2} (a short k32 step for k % 4 == 3);
+# k > 8 reads A from a shared tile. m not a multiple of 8 leaves rows of A
+# zero and their stores skipped; B % 64 != 0 masks the last warp step, and
+# B % 16 != 0 takes the byte-wise loads and stores.
 @pytest.mark.parametrize("batch,m,k,B", [
     (1, 1, 1, 1),
     (3, 6, 6, 1001),       # ragged B: byte-wise edge everywhere
@@ -43,6 +48,19 @@ def _case(rng, batch, m, k, B, device):
     (4, 8, 6, 16384),      # aligned: 16-byte loads and stores
     (2, 128, 256, 4096),   # k = 256, the field's limit
     (1, 256, 16, 160),     # 32 row tiles
+    (2, 8, 1, 520),
+    (2, 8, 2, 64),
+    (2, 8, 3, 65),
+    (2, 8, 4, 520),
+    (2, 8, 5, 63),
+    (2, 8, 7, 520),
+    (2, 8, 8, 65),
+    (2, 9, 9, 64),
+    (1, 9, 33, 520),
+    (3, 1, 6, 64),
+    (2, 9, 6, 63),
+    (2, 17, 6, 520),
+    (128, 8, 6, 4160),     # the write path's batch at a small B, two column blocks
 ])
 def test_k1_matches_plain_version(cuda, batch, m, k, B):
     rng = np.random.default_rng(batch * 1000 + m * 10 + k)
@@ -63,6 +81,32 @@ def test_k1_misaligned_data_pointer(cuda):
     view.copy_(data)
     assert view.is_contiguous() and view.data_ptr() % 16 == 1
     got = gf2_rs_matmul_bytes(bitmats, view)
+    assert torch.equal(got, gf2_rs_matmul_bytes_ref(bitmats, data))
+
+
+@pytest.mark.parametrize("k", [6, 9])
+def test_k1_misaligned_out_pointer(cuda, k):
+    """out one byte into a flat buffer, through the C entry point (the
+    wrapper allocates its own aligned out): the byte-wise stores, and not a
+    byte written outside out."""
+    rng = np.random.default_rng(10 + k)
+    bitmats, data = _case(rng, 2, 8, k, 2048, cuda)
+    want = gf2_rs_matmul_bytes_ref(bitmats, data)
+    obuf = torch.zeros(want.numel() + 2, dtype=torch.uint8, device=cuda)
+    out = obuf[1:-1].view(want.shape)
+    assert out.data_ptr() % 16 == 1
+    gf2mm._launch("gf2_rs_bytes", bitmats.data_ptr(), data.data_ptr(), out.data_ptr(), 2, 64, k,
+                  2048)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and int(obuf[0]) == 0 and int(obuf[-1]) == 0
+
+
+def test_k1_zero_data_rows_give_zero_rows(cuda):
+    """k = 0: an empty XOR, every output byte zero."""
+    bitmats = torch.zeros((2, 16, 0), dtype=torch.uint8, device=cuda)
+    data = torch.zeros((2, 0, 100), dtype=torch.uint8, device=cuda)
+    got = gf2_rs_matmul_bytes(bitmats, data)
+    assert got.shape == (2, 2, 100) and not got.any()
     assert torch.equal(got, gf2_rs_matmul_bytes_ref(bitmats, data))
 
 
