@@ -46,7 +46,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    numpy oracle on the same draws, the paper's orderings are asserted, and a
    streamed run must equal the materialized one bit for bit; then one chunk
    once more under torch.profiler (wall, device busy, idle share, device
-   kernels per scan step).
+   kernels per scan step);
+7. taskq — Fig. 7's Greedy row and Fig. 9 in one ``TaskqSweep`` on the
+   exact task engine: 8 Greedy rates plus TOFEC and Greedy at 6 rates, 3,500
+   arrivals each, one chunk, over the figures' shared-key trace pools
+   (6 × 8,192 × 12); every row is held against the host event oracle on the
+   same draws over the reference test's first 1,200 arrivals (the whole
+   run's agreement is printed), Greedy is printed beside the fleet's TOFEC
+   row, Fig. 9's median std ratio must exceed 1.2, and a 500-arrival chunk
+   is profiled;
+8. mpc — Fig. 7's MPC row: the host event oracle with ``MPCPolicy`` at the
+   same 8 rates (host seconds, mean and p99 per rate);
+9. sched — the multiclass-disciplines figure through ``SchedSweep``: 2
+   classes × 6 rates × (FIFO, priority, WFQ), 3,000 arrivals, one chunk,
+   with the Poisson-split fleet baseline; the interference headline is
+   held, a one-class mix must equal the fluid scan bit for bit and a
+   streamed run the materialized one, and a 500-arrival chunk is profiled.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``. Without a card it
@@ -75,10 +90,18 @@ K_MAX, R_MAX, L_THREADS = 6, 2, 16
 
 #: The Fig. 7 sweep (benchmarks/paper_figures.py, fig7_adaptive_tradeoff).
 FLEET_COUNT, FLEET_SEED, FLEET_CHUNK = 3500, 1, 64
-#: Reference values of that figure, from a JAX CPU run at 1,200 arrivals:
-#: printed beside the card's for the reader, never asserted.
-BASELINE_FLEET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks",
-                              "baselines", "BENCH_fleet.json")
+#: Reference values of the figures, from the reference's JAX CPU runs at
+#: fewer arrivals: printed beside the card's for the reader, never asserted.
+BASELINES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks", "baselines")
+
+#: Fig. 7's Greedy row and Fig. 9 on the exact task engine, and the trace
+#: pools both read (benchmarks/paper_figures.py, benchmarks/common.py).
+TASKQ_COUNT, TASKQ_CHUNK = 3500, 64
+POOL_SAMPLES, POOL_CORRELATION, POOL_SEED = 8192, 0.14, 5
+#: The multiclass-disciplines figure (paper_figures.py, fig_multiclass_disciplines).
+SCHED_COUNT, SCHED_CHUNK = 3000, 32
+#: Arrivals of the profiled taskq and sched chunks (a short, small trace).
+PROFILE_COUNT = 500
 
 
 def request_class():
@@ -397,16 +420,23 @@ def run_k2_path(device, *, strip_bytes: int = FILE_BYTES // K_MAX, seed: int = 0
     return {"wall_ms": wall_ms, "shape": [list(g2.shape), list(planes.shape)]}
 
 
+def rate_grid(n: int, lo_frac: float, hi_frac: float) -> np.ndarray:
+    """``n`` arrival rates from ``lo_frac`` to ``hi_frac`` of the basic (1, 1)
+    code's capacity (benchmarks/common.py's ``rate_grid``)."""
+    from repro_torch.core import PAPER_READ_3MB, queueing
+
+    cap = queueing.capacity(PAPER_READ_3MB, request_class().file_mb, 1, 1.0, L_THREADS)
+    return np.linspace(lo_frac * cap, hi_frac * cap, n)
+
+
 def fleet_grid():
     """The Fig. 7 grid: 8 rates from 0.1 to 0.92 of the basic (1, 1) code's
     capacity × (TOFEC, fixed-k(6), every static (n, k) with k ≤ 6 and
     k ≤ n ≤ min(2k, 12)) × seed 1, as benchmarks/common.py builds it."""
-    from repro_torch.core import PAPER_READ_3MB, queueing
     from repro_torch.fleet import PolicySpec, grid_cases
 
     cls_ = request_class()
-    cap = queueing.capacity(PAPER_READ_3MB, cls_.file_mb, 1, 1.0, L_THREADS)
-    rates = np.linspace(0.1 * cap, 0.92 * cap, 8)
+    rates = rate_grid(8, 0.1, 0.92)
     statics = [(n, k) for k in range(1, K_MAX + 1)
                for n in range(k, min(int(R_MAX * k), cls_.n_max) + 1)]
     policies = [PolicySpec.tofec(), PolicySpec.fixedk(6)] + [
@@ -483,8 +513,7 @@ def run_fleet(device, *, count: int = FLEET_COUNT) -> dict:
     rec["reduce_s"] = time.monotonic() - t0
     caps, head = capacity_estimates(pts), headline_ratios(pts)
     rec["headline"], rec["capacity_req_s"] = head, caps
-    with open(BASELINE_FLEET) as f:
-        base = {k: v["value"] for k, v in json.load(f)["metrics"].items()}
+    base = baseline_metrics("BENCH_fleet.json")
     print(f"[fleet] frontier reduced in {rec['reduce_s']:.3f} s", flush=True)
     for name in ("delay_gain_vs_basic", "capacity_gain_vs_latency_optimal",
                  "tofec_light_mean", "basic_light_mean"):
@@ -514,8 +543,10 @@ def run_fleet(device, *, count: int = FLEET_COUNT) -> dict:
           f"{same}", flush=True)
     if not same:
         raise AssertionError("the streamed sweep differs from the materialized one")
+    rec["tofec_points"] = [p for p in pts if p.policy == "tofec"]
     if device.type == "cuda":  # the profiler reads the card's timeline
-        rec["profile"] = profile_fleet_chunk(sweep, cases[:FLEET_CHUNK], count)
+        rec["profile"] = profile_chunk("fleet", lambda: sweep.run(cases[:FLEET_CHUNK], count),
+                                       FLEET_CHUNK, count)
     return rec
 
 
@@ -532,38 +563,339 @@ def device_spans(prof):
     return busy_us / 1e3, events
 
 
-def profile_fleet_chunk(sweep, cases, count: int) -> dict:
-    """One chunk of the Fig. 7 sweep again, under torch.profiler: its host
-    wall time, the device's busy time and idle share, and the device kernels
-    it issues per scan step."""
+def profile_chunk(label: str, run, rows: int, count: int) -> dict:
+    """One chunk of a sweep (``run()``, ``rows`` cases × ``count`` scan
+    steps) under torch.profiler: its host wall time, the device's busy time
+    and idle share, and the device kernels it issues per scan step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        sweep.run(cases, count)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     busy_ms, events = device_spans(prof)
     if busy_ms <= 0:
-        raise AssertionError("the profiler recorded no device time for the fleet chunk")
+        raise AssertionError(f"the profiler recorded no device time for the {label} chunk")
     kernels = [ev for ev in events if not ev.name.startswith(("Memcpy", "Memset"))]
     by_name: dict[str, list] = {}
     for ev in kernels:
         row = by_name.setdefault(ev.name, [ev.name, 0, 0.0])
         row[1] += 1
         row[2] += (ev.time_range.end - ev.time_range.start) / 1e3
-    rec = {"cases": len(cases), "count": count, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    rec = {"cases": rows, "count": count, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": 1.0 - busy_ms / wall_ms, "device_kernels": len(kernels),
-           "kernels_per_step": len(kernels) / count, "copies": len(events) - len(kernels),
+           "kernels_per_step": len(kernels) / count, "ms_per_step": wall_ms / count,
+           "copies": len(events) - len(kernels),
            "top": sorted(by_name.values(), key=lambda r: -r[2])[:8]}
-    print(f"[profile] one fleet chunk ({len(cases)} cases x {count} steps) under the profiler: "
-          f"{wall_ms:.3f} ms wall, {busy_ms:.3f} ms device busy, idle share "
-          f"{rec['device_idle_share']:.4f}, {len(kernels)} device kernels in the chunk = "
-          f"{rec['kernels_per_step']:.2f} per scan step, {rec['copies']} copies", flush=True)
+    print(f"[profile] one {label} chunk ({rows} cases x {count} steps) under the profiler: "
+          f"{wall_ms:.3f} ms wall ({rec['ms_per_step']:.4f} ms per scan step), {busy_ms:.3f} ms "
+          f"device busy, idle share {rec['device_idle_share']:.4f}, {len(kernels)} device "
+          f"kernels in the chunk = {rec['kernels_per_step']:.2f} per scan step, "
+          f"{rec['copies']} copies", flush=True)
     for name, n, ms in rec["top"]:
         print(f"[profile]   {ms:10.4f} ms  x{n:<6d} {name[:100]}", flush=True)
+    return rec
+
+
+def baseline_metrics(name: str) -> dict:
+    """The ``metrics`` of a reference baseline artifact, by name."""
+    with open(os.path.join(BASELINES, name)) as f:
+        return {k: v["value"] for k, v in json.load(f)["metrics"].items()}
+
+
+def taskq_pools(device):
+    """The figures' shared-key trace pools (benchmarks/common.py's
+    ``taskq_sweep``): the six chunk sizes of the §V-A class, 8,192 jointly
+    sampled thread batches, correlation 0.14, seed 5, as (6, 8192, 12)
+    float32 on ``device``."""
+    from repro_torch.core import PAPER_READ_3MB
+    from repro_torch.core.traces import TraceStore
+
+    cls_ = request_class()
+    store = TraceStore.generate(PAPER_READ_3MB, [cls_.file_mb / k for k in range(1, K_MAX + 1)],
+                                threads=cls_.n_max, samples=POOL_SAMPLES,
+                                correlation=POOL_CORRELATION, seed=POOL_SEED)
+    return store.device_pools(n_max=cls_.n_max, device=device)
+
+
+def taskq_grid():
+    """Fig. 7's Greedy row (8 rates of ``rate_grid(8, 0.1, 0.92)``) then
+    Fig. 9's TOFEC and Greedy at the 6 rates of ``rate_grid(6, 0.15, 0.9)``,
+    seed 1: 20 cases, and the count of Fig. 7's."""
+    from repro_torch.fleet import PolicySpec, grid_cases
+
+    cls_ = request_class()
+    fig7 = grid_cases(rate_grid(8, 0.1, 0.92), [PolicySpec.greedy()], [FLEET_SEED], cls_,
+                      L_THREADS)
+    fig9 = grid_cases(rate_grid(6, 0.15, 0.9), [PolicySpec.tofec(), PolicySpec.greedy()],
+                      [FLEET_SEED], cls_, L_THREADS)
+    return fig7 + fig9, len(fig7)
+
+
+#: Arrivals of the reference's engine-vs-oracle test (tests/test_taskq.py),
+#: the horizon its bars were set on.
+ORACLE_PICK_HORIZON = 1200
+
+
+def check_taskq_rows(res, cases, pools, count: int) -> dict:
+    """Every row of an exact sweep against the port's host event oracle on
+    the same draws (``taskq_streams``, the same pool rows), with the bars of
+    the reference's tests/test_taskq.py over that test's horizon (its first
+    1,200 arrivals): per-request (n, k) equal on ≥ 0.99 of arrivals and
+    mean delay within rtol 1e-2.
+
+    The engine keeps simulated time in float32 (as the reference's does,
+    bit for bit) and the oracle in float64; the engine's arrival clock, a
+    float32 running sum, drifts ~1e-5 s from the oracle's over a thousand
+    arrivals. Where an arrival and a task start lie that close, the backlog
+    or idle count the two observe differs by one, the policy picks another
+    code, and the two sample paths part for a while. So over the whole run
+    the agreement and the mean's error are printed, not held."""
+    from repro_torch.core import GreedyPolicy, TOFECPolicy, build_class_plan
+    from repro_torch.core.simulator import simulate
+    from repro_torch.taskq import taskq_streams
+
+    out = res.to_numpy()
+    h = min(ORACLE_PICK_HORIZON, count)
+    worst = {"pick_agreement": 1.0, "full_run_pick_agreement": 1.0, "max_mean_rel_err": 0.0}
+    for i, case in enumerate(cases):
+        cls_ = case.cls
+        policy = (GreedyPolicy(cls_.k_max, cls_.r_max) if case.policy.kind == "greedy"
+                  else TOFECPolicy([build_class_plan(cls_, case.L)], alpha=case.policy.alpha))
+        inter, idx = taskq_streams(case, count, pools.n_rows)
+        host = simulate(policy, np.cumsum(inter.astype(np.float64)),
+                        pools.host_sampler(cls_.file_mb, idx), L=case.L, warmup_frac=0.0)
+        same = (out["n"][i] == host.ns()) & (out["k"][i] == host.ks())
+        got, want = out["total"][i].astype(np.float64), host.totals()
+        agree, full = float(same[:h].mean()), float(same.mean())
+        rel = abs(got[:h].mean() - want[:h].mean()) / want[:h].mean()
+        rel_full = abs(got.mean() - want.mean()) / want.mean()
+        print(f"[taskq]   row {i:2d} {case.policy.name:6s} λ={case.lam:6.2f}: first {h} "
+              f"arrivals: picks agree on {agree:.4f}, mean delay off by {rel:.3g} relative; all "
+              f"{count}: {full:.4f} and {rel_full:.3g} (mean {got.mean():.5f} vs oracle "
+              f"{want.mean():.5f} s)", flush=True)
+        if agree < 0.99 or rel > 1e-2:
+            raise AssertionError(f"taskq row {i} ({case.policy.name}, λ={case.lam:.3f}): picks "
+                                 f"agree on {agree}, mean delay off by {rel:.3g} relative")
+        worst["pick_agreement"] = min(worst["pick_agreement"], agree)
+        worst["max_mean_rel_err"] = max(worst["max_mean_rel_err"], rel)
+        worst["full_run_pick_agreement"] = min(worst["full_run_pick_agreement"], full)
+        worst["full_run_max_mean_rel_err"] = max(worst.get("full_run_max_mean_rel_err", 0.0),
+                                                 rel_full)
+    return worst
+
+
+def run_taskq(device, *, count: int = TASKQ_COUNT, fleet_tofec=None) -> dict:
+    """Fig. 7's Greedy row and Fig. 9 in one exact task-engine sweep on the
+    card: every row held against the host event oracle, Greedy beside the
+    fleet's TOFEC row, Fig. 9's std ratio asserted, one chunk profiled."""
+    from repro_torch.fleet import capacity_estimates, frontier_points
+    from repro_torch.taskq import TaskqSweep
+
+    cases, n7 = taskq_grid()
+    pools = taskq_pools(device)
+    sweep = TaskqSweep(chunk=TASKQ_CHUNK, device=device)
+    cls_ = request_class()
+    key = sweep.bucket_key(len(cases), count, L_THREADS, cls_.k_max + 1, cls_.n_max + 1,
+                           pools.pools.shape)
+    t0 = time.monotonic()
+    res = sweep.run(cases, count, pools)
+    _sync(device)
+    wall_s = time.monotonic() - t0
+    rec = {"cases": len(cases), "count": count, "bucket_key": list(key), "wall_s": wall_s,
+           "chunks": res.launches, "bucket_uses": res.compiles}
+    print(f"[taskq] Fig. 7 Greedy + Fig. 9: {len(cases)} cases x {count} arrivals, pools "
+          f"{tuple(pools.pools.shape)}, {res.launches} chunk(s), {res.compiles} bucket use(s), "
+          f"key {key}, {wall_s:.3f} s wall ({wall_s / count * 1e3:.4f} ms per scan step)",
+          flush=True)
+    if res.launches != 1 or res.compiles != 1:
+        raise AssertionError(f"expected one chunk in one bucket, got {res.launches} chunks "
+                             f"and {res.compiles} bucket uses")
+    pts = frontier_points(res)
+    tofec = {round(p.lam, 6): p for p in fleet_tofec or []}
+    for g in pts[:n7]:
+        t = tofec.get(round(g.lam, 6))
+        beside = (f"; fleet TOFEC mean {t.mean:.4f} p50 {t.p50:.4f} p90 {t.p90:.4f} "
+                  f"p99 {t.p99:.4f}" if t else "")
+        print(f"[taskq] Fig. 7 λ={g.lam:.2f}: greedy mean {g.mean:.4f} p50 {g.p50:.4f} p90 "
+              f"{g.p90:.4f} p99 {g.p99:.4f} s, mean k {g.mean_k:.2f}{beside}", flush=True)
+    ratios = []
+    for t, g in zip(pts[n7::2], pts[n7 + 1::2]):
+        ratios.append(g.std / t.std)
+        print(f"[taskq] Fig. 9 λ={t.lam:.2f}: std tofec {t.std:.4f} greedy {g.std:.4f} s, "
+              f"ratio {ratios[-1]:.3f}", flush=True)
+    rec["fig9_std_ratio_median"] = float(np.median(ratios))
+    print(f"[taskq] Fig. 9 median greedy/TOFEC std ratio {rec['fig9_std_ratio_median']:.3f} "
+          "(paper: 2-3x; held > 1.2)", flush=True)
+    if not rec["fig9_std_ratio_median"] > 1.2:
+        raise AssertionError(f"Fig. 9: greedy/TOFEC std ratio {rec['fig9_std_ratio_median']}")
+    caps, base = capacity_estimates(pts), baseline_metrics("BENCH_taskq.json")
+    for name in ("greedy", "tofec"):
+        print(f"[taskq] capacity {name}: {caps[name]!r} req/s (JAX CPU baseline, 20 cases x "
+              f"1,000 arrivals: {base.get('capacity_req_s/' + name)!r})", flush=True)
+    t0 = time.monotonic()
+    rec["oracle"] = check_taskq_rows(res, cases, pools, count)
+    rec["oracle_s"] = time.monotonic() - t0
+    o = rec["oracle"]
+    print(f"[taskq] all {len(cases)} rows vs the host event oracle, first "
+          f"{ORACLE_PICK_HORIZON} arrivals: picks agree on >= {o['pick_agreement']:.6f}, mean "
+          f"delay within {o['max_mean_rel_err']:.3g} relative; all {count} arrivals (printed, "
+          f"not held): >= {o['full_run_pick_agreement']:.6f} and "
+          f"{o['full_run_max_mean_rel_err']:.3g} ({rec['oracle_s']:.3f} s of host time)",
+          flush=True)
+    if device.type == "cuda":
+        rec["profile"] = profile_chunk("taskq", lambda: sweep.run(cases, PROFILE_COUNT, pools),
+                                       len(cases), PROFILE_COUNT)
+    return rec
+
+
+def run_mpc(*, count: int = TASKQ_COUNT) -> dict:
+    """Fig. 7's MPC row: the host event oracle with ``MPCPolicy`` at the
+    figure's 8 rates (benchmarks/common.py's ``run_policy``: Poisson
+    arrivals from seed 1, the shared-key sampler, simulator seed 18)."""
+    from repro_torch.core import PAPER_READ_3MB
+    from repro_torch.core.controller import MPCPolicy
+    from repro_torch.core.simulator import poisson_arrivals, simulate
+    from repro_torch.core.traces import TraceSampler
+
+    cls_ = request_class()
+    sampler = TraceSampler(PAPER_READ_3MB, cls_.file_mb, correlation=POOL_CORRELATION)
+    rec = {"rows": []}
+    for lam in rate_grid(8, 0.1, 0.92):
+        t0 = time.monotonic()
+        arr = poisson_arrivals(np.random.default_rng(FLEET_SEED), lam, count)
+        s = simulate(MPCPolicy(cls_, L_THREADS), arr, sampler, L=L_THREADS,
+                     seed=FLEET_SEED + 17).summary()
+        host_s = time.monotonic() - t0
+        if not (np.isfinite(s["mean"]) and np.isfinite(s["p99"]) and 1 <= s["mean_k"] <= K_MAX):
+            raise AssertionError(f"MPC at λ={lam:.3f}: {s}")
+        rec["rows"].append({"lam": float(lam), "host_s": host_s, **s})
+        print(f"[mpc] Fig. 7 λ={lam:.2f}: mean {s['mean']:.4f} p99 {s['p99']:.4f} s, mean k "
+              f"{s['mean_k']:.2f}, {host_s:.3f} s of host time", flush=True)
+    return rec
+
+
+def sched_grid():
+    """The multiclass figure's grid: two classes at 0.5/0.5 (the §V-A read
+    class and read1mb with k_max 4, r_max 2, n_max 8), the 6 rates of
+    ``rate_grid(6, 0.25, 0.85)``, FIFO, priority(0, 1), WFQ(1, 1), seed 1."""
+    from repro_torch.core import PAPER_READ_3MB, RequestClass
+    from repro_torch.fleet import TenantMix
+    from repro_torch.sched import DisciplineSpec, sched_cases
+
+    lo = RequestClass("read1mb", 1.0, PAPER_READ_3MB, k_max=4, r_max=2.0, n_max=8)
+    mixes = [TenantMix(float(lam), (request_class(), lo), (0.5, 0.5))
+             for lam in rate_grid(6, 0.25, 0.85)]
+    discs = [DisciplineSpec.fifo(), DisciplineSpec.priority(0, 1), DisciplineSpec.wfq(1.0, 1.0)]
+    return mixes, sched_cases(mixes, discs, [FLEET_SEED], L=L_THREADS)
+
+
+def run_sched(device, *, count: int = SCHED_COUNT) -> dict:
+    """The multiclass-disciplines figure on the card: the joint sweep, the
+    Poisson-split baseline through the fleet, the interference headline
+    held, a one-class mix against the fluid scan and a streamed run against
+    the materialized one bit for bit, one chunk profiled."""
+    from repro_torch.fleet import (FleetSweep, PolicySpec, TenantMix, frontier_points,
+                                   grid_cases, tenant_cases)
+    from repro_torch.sched import (DisciplineSpec, SchedCase, SchedSweep, interference_summary,
+                                   multiclass_points)
+
+    mixes, cases = sched_grid()
+    sweep = SchedSweep(chunk=SCHED_CHUNK, device=device)
+    t0 = time.monotonic()
+    res = sweep.run(cases, count)
+    _sync(device)
+    wall_s = time.monotonic() - t0
+    rec = {"cases": len(cases), "count": count, "wall_s": wall_s, "chunks": res.launches,
+           "bucket_uses": res.compiles}
+    print(f"[sched] multiclass figure: {len(cases)} cases x {count} arrivals, {res.launches} "
+          f"chunk(s), {res.compiles} bucket use(s), {wall_s:.3f} s wall "
+          f"({wall_s / count * 1e3:.4f} ms per scan step)", flush=True)
+    if res.launches != 1 or res.compiles != 1:
+        raise AssertionError(f"expected one chunk in one bucket, got {res.launches} chunks "
+                             f"and {res.compiles} bucket uses")
+    pts = multiclass_points(res)
+
+    split_cases = [c for mix in mixes
+                   for c in tenant_cases(mix, [PolicySpec.tofec()], [FLEET_SEED], L_THREADS,
+                                         quiet=True)]
+    t0 = time.monotonic()
+    split_res = FleetSweep(chunk=FLEET_CHUNK, device=device).run(split_cases, count)
+    _sync(device)
+    rec["split_wall_s"] = time.monotonic() - t0
+    # Split cases carry the per-class rate w·λ (w = 0.5): key them by λ.
+    split = {(round(c.lam / 0.5, 6), c.cls.name): p
+             for c, p in zip(split_cases, frontier_points(split_res))}
+    print(f"[sched] Poisson-split baseline: {len(split_cases)} fleet cases in "
+          f"{rec['split_wall_s']:.3f} s wall", flush=True)
+    for pt in pts:
+        for cl in pt.classes:
+            sp = split[(round(pt.lam, 6), cl["name"])]
+            print(f"[sched] {pt.discipline:13s} λ={pt.lam:6.2f} {cl['name']:8s} mean "
+                  f"{cl['mean']:.4f} p99 {cl['p99']:.4f} s (split {sp.mean:.4f} / {sp.p99:.4f}), "
+                  f"mean k {cl['mean_k']:.2f}, jain {pt.jain_delay:.4f}", flush=True)
+    lam_max = round(max(p.lam for p in pts), 6)
+    split_p99 = {cl["name"]: split[(lam_max, cl["name"])].p99 for cl in pts[-1].classes}
+    head = interference_summary(pts, split_p99)
+    rec["interference"] = head
+    base = baseline_metrics("BENCH_multiclass.json")
+    for name, e in head.items():
+        print(f"[sched] interference {name}: p99 vs split {e['p99_vs_split']}, jain "
+              f"{e['jain_delay']:.4f} (JAX CPU baseline at 1,200 arrivals: "
+              f"{base.get(f'interference/{name}/jain_delay')!r}), p99 spread "
+              f"{e['p99_spread']:.3f} (baseline {base.get(f'interference/{name}/p99_spread')!r})",
+              flush=True)
+    # The headline, with the bars of the reference's tests/test_sched.py: the
+    # low class's joint p99 far above its split prediction, the high class's
+    # near it, the starved class backing off to cheaper codes, priority
+    # collapsing the fairness index; FIFO and WFQ putting both classes above
+    # their split prediction, and FIFO keeping Jain above 0.95. The test's
+    # WFQ Jain bar (> 0.95) was set for two identical classes; here a 3 MB
+    # and a 1 MB class share the pool, so WFQ's Jain is printed, not held.
+    pr = head["priority(0,1)"]["p99_vs_split"]
+    prio = next(p for p in pts if p.discipline == "priority(0,1)" and round(p.lam, 6) == lam_max)
+    shared = all(r > 1.0 for name in ("fifo", "wfq(1:1)")
+                 for r in head[name]["p99_vs_split"].values())
+    if not (pr["read1mb"] > 2.0 and pr["read3mb"] < 1.3
+            and prio.cls("read1mb")["mean_k"] < prio.cls("read3mb")["mean_k"]
+            and head["priority(0,1)"]["jain_delay"] < 0.8
+            and shared and head["fifo"]["jain_delay"] > 0.95):
+        raise AssertionError(f"the interference headline does not hold: {head}")
+    print(f"[sched] headline at λ={lam_max:.2f}: priority's low class p99 {pr['read1mb']:.3f}x "
+          f"its split prediction, high class {pr['read3mb']:.4f}x (held > 2, < 1.3)",
+          flush=True)
+
+    one_cases = [SchedCase(mix=TenantMix(float(lam_max), (request_class(),), (1.0,)),
+                           discipline=d, seed=FLEET_SEED, L=L_THREADS)
+                 for d in (DisciplineSpec.fifo(), DisciplineSpec.priority(0),
+                           DisciplineSpec.wfq(1.0))]
+    one = SchedSweep(chunk=4, device=device).run(one_cases, count).to_numpy()
+    fl = FleetSweep(chunk=4, device=device).run(
+        grid_cases([lam_max], [PolicySpec.tofec()], [FLEET_SEED], request_class(), L_THREADS),
+        count).to_numpy()
+    same = all(np.array_equal(one[f][g], fl[f][0]) for g in range(len(one_cases))
+               for f in ("total", "queueing", "service", "n", "k"))
+    print(f"[sched] one-class mix (fifo, priority, wfq) equals the fluid scan bit for bit: "
+          f"{same}", flush=True)
+    if not same:
+        raise AssertionError("a one-class mix differs from the fluid scan")
+
+    t0 = time.monotonic()
+    streamed = sweep.run(cases, count, stream=True)
+    _sync(device)
+    rec["stream_wall_s"] = time.monotonic() - t0
+    same = [p.to_dict() for p in multiclass_points(streamed)] == [p.to_dict() for p in pts]
+    print(f"[sched] streamed run: {streamed.launches} chunk(s), {streamed.compiles} new bucket "
+          f"uses, {rec['stream_wall_s']:.3f} s wall, equal to the materialized run bit for bit: "
+          f"{same}", flush=True)
+    if not same:
+        raise AssertionError("the streamed sched sweep differs from the materialized one")
+    if device.type == "cuda":
+        rec["profile"] = profile_chunk("sched", lambda: sweep.run(cases, PROFILE_COUNT),
+                                       len(cases), PROFILE_COUNT)
     return rec
 
 
@@ -742,7 +1074,10 @@ def main() -> int:
     if k2_launches == 0:
         raise AssertionError("K2 was not launched on its path")
 
-    run_fleet(device)
+    fleet = run_fleet(device)
+    run_taskq(device, fleet_tofec=fleet["tofec_points"])
+    run_mpc()
+    run_sched(device)
 
     kernels = {"kernels": [{
         "name": "gf2_rs_matmul_bytes",

@@ -195,9 +195,9 @@ def simulate_shared_pool(
     state); each sees a discipline-shaped queue-length observation: total
     queued (fifo), queued at its own or higher priority (priority), or its
     own queue scaled by the inverse of its weight share (wfq) — mirroring
-    the waiting-work terms of the reference package's
-    ``repro.sched.scan.multiclass_scan_core``,
-    which this function cross-validates. Passing a single :class:`Policy`
+    the waiting-work terms of
+    :func:`repro_torch.sched.scan.multiclass_scan_core`, which this function
+    cross-validates. Passing a single :class:`Policy`
     instead shares it across classes (it then observes the true ``cls_id``
     per arrival) — the :func:`simulate` front-end.
     """

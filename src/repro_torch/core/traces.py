@@ -135,14 +135,13 @@ class TraceStore:
 
         Returns a :class:`DevicePools` holding ``sizes_mb`` (S,) float32 and
         ``pools`` (S, size, n_max) float32 tensors — the shared pre-sampled
-        delay supply consumed by BOTH an on-device task engine (the reference
-        package's ``repro.taskq``, not ported yet) and the host event oracle
-        (via
+        delay supply consumed by BOTH the on-device task engine
+        (:mod:`repro_torch.taskq`) and the host event oracle (via
         :meth:`DevicePools.host_sampler`). Rows are whole jointly-sampled
         thread batches, so the shared-key copula correlation of the trace
         survives the export; reading row ``i`` of pool ``s`` yields identical
         values on both sides, which is what makes the engine-vs-oracle
-        parity pin of the reference's ``tests/test_taskq.py`` possible.
+        parity pin of ``tests/test_torch_taskq.py`` possible.
         """
         dev = resolve_device(device)
         widths = [p.shape[1] for p in self.pools]

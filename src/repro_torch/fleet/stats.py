@@ -16,11 +16,16 @@ functions on the device of their inputs:
 Bit-exact streaming. The reference relies on XLA reducing each row the same
 way whatever the leading batch size. torch picks how it splits a float
 reduction from the tensor's shape (on the CPU and on the card), so a row's
-mean could change with the number of rows beside it. So
-:func:`frontier_block_reduce` always reduces blocks of exactly
-:data:`ROW_BLOCK` contiguous rows (a short last block is padded by
-repeating its first row, and the padding is cut off): a row's statistics are
-then the same in a streamed and a materialized run.
+mean could change with the number of rows beside it. On the card it also
+changes with the row's place in the block: a row of a contiguous (rows, T)
+temporary starts at another 16-byte alignment when T is not a multiple of
+4, and the vectorized reduction then adds its elements in another order.
+So :func:`reduce_row_blocks` always reduces blocks of exactly
+:data:`ROW_BLOCK` rows, and grid row g always sits at place g % ROW_BLOCK of
+its block, whichever chunk of the grid it came in (the places of rows a
+chunk does not hold are padded by repeating one it does, and the padding is
+cut off): a row's statistics are then the same in a streamed and a
+materialized run.
 """
 
 from __future__ import annotations
@@ -92,26 +97,46 @@ def class_params(cfg: dict, device) -> list[torch.Tensor]:
 
 
 def frontier_block_reduce(out: dict, delta_bar, delta_tilde, psi_bar, psi_tilde, J, *,
-                          w: int) -> dict[str, torch.Tensor]:
+                          w: int, first: int = 0) -> dict[str, torch.Tensor]:
     """Per-row frontier statistics of a (rows, T) result block.
 
     ``out`` holds ``total``/``queueing`` (float32) and ``n``/``k`` (int32)
     blocks; the class parameters are (rows,) float32 tensors; ``w`` is the
-    warmup cut. Reduces :data:`ROW_BLOCK` rows at a time (see the module
-    docstring), so the result of a row never depends on the block size.
+    warmup cut and ``first`` the grid index of the block's first row.
+    Reduces through :func:`reduce_row_blocks`, so the result of a row never
+    depends on how the grid was chunked.
     """
-    rows = out["total"].shape[0]
-    dev = out["total"].device
-    per_row = (delta_bar, delta_tilde, psi_bar, psi_tilde, J)
+    names = ("delta_bar", "delta_tilde", "psi_bar", "psi_tilde", "J")
+    rows = {name: out[name] for name in ("total", "queueing", "n", "k")}
+    rows.update(zip(names, (delta_bar, delta_tilde, psi_bar, psi_tilde, J)))
+    return reduce_row_blocks(lambda blk: _block_stats(blk, *(blk[n] for n in names), w), rows,
+                             first=first)
+
+
+def reduce_row_blocks(reduce, rows: dict, *, first: int = 0) -> dict[str, torch.Tensor]:
+    """``reduce`` over blocks of exactly :data:`ROW_BLOCK` rows, each row at
+    the place its grid index gives it.
+
+    ``rows`` maps names to tensors whose leading axis holds grid rows
+    ``first``, ``first + 1``, ...; ``reduce`` takes one block of them and
+    returns per-row statistics, which are cut back to the rows given and
+    concatenated in their order. Grid row g sits at place g % ROW_BLOCK;
+    the other places repeat the block's first given row. A row's statistics
+    then never depend on how the grid was chunked (see the module
+    docstring).
+    """
+    n = next(iter(rows.values())).shape[0]
+    dev = next(iter(rows.values())).device
     parts = []
-    for lo in range(0, rows, ROW_BLOCK):
-        hi = min(lo + ROW_BLOCK, rows)
-        idx = torch.arange(lo, lo + ROW_BLOCK, device=dev)
-        idx[hi - lo:] = lo  # pad a short block by repeating its first row
-        blk = {name: out[name].index_select(0, idx)
-               for name in ("total", "queueing", "n", "k")}
-        red = _block_stats(blk, *(x.index_select(0, idx) for x in per_row), w)
-        parts.append({name: v[: hi - lo] for name, v in red.items()})
+    lo = 0
+    while lo < n:
+        start = (first + lo) % ROW_BLOCK  # place of local row lo in its block
+        hi = min(n, lo + ROW_BLOCK - start)
+        idx = torch.full((ROW_BLOCK,), lo, dtype=torch.int64, device=dev)
+        idx[start:start + hi - lo] = torch.arange(lo, hi, device=dev)
+        red = reduce({name: v.index_select(0, idx) for name, v in rows.items()})
+        parts.append({name: v[start:start + hi - lo] for name, v in red.items()})
+        lo = hi
     return {name: torch.cat([p[name] for p in parts]) for name in parts[0]}
 
 

@@ -102,8 +102,8 @@ class PolicySpec:
     ``greedy`` (§V-A idle-thread heuristic) is NOT table-expressible — it
     observes the instantaneous idle-thread count, which the fluid scan does
     not model. Greedy grid points only run on the exact task-level engine
-    (the reference package's ``repro.taskq.TaskqSweep``, not ported yet);
-    :func:`policy_tables` raises for them.
+    (:class:`repro_torch.taskq.TaskqSweep`); :func:`policy_tables` raises
+    for them.
     """
 
     kind: str
@@ -153,7 +153,7 @@ def policy_tables(spec: PolicySpec, cls: RequestClass, L: int, plan: ClassPlan |
     if spec.kind == "greedy":
         raise ValueError(
             "greedy is not table-expressible (it observes idle threads, not "
-            "backlog); run it on the exact task engine: repro.taskq.TaskqSweep"
+            "backlog); run it on the exact task engine: repro_torch.taskq.TaskqSweep"
         )
     raise ValueError(f"unknown policy kind {spec.kind!r}")
 
@@ -209,16 +209,16 @@ def tenant_cases(
     .. note:: This is the **approximation path**: splitting gives every
        class an independent fluid queue that believes it owns all L
        threads, so cross-class interference (§IV's shared-resource story)
-       is invisible. The joint shared-pool simulation is the reference
-       package's ``repro.sched`` (not ported yet); pass ``quiet=True`` when
-       the fluid split is wanted deliberately.
+       is invisible. The joint shared-pool simulation is
+       :mod:`repro_torch.sched`; pass ``quiet=True`` when the fluid split is
+       wanted deliberately.
     """
     if not quiet:
         warnings.warn(
             "tenant_cases() Poisson-splits the mix into independent per-class "
-            "fluid queues and cannot show cross-class interference; the joint "
-            "shared-pool simulation (repro.sched in the reference package) is "
-            "not ported yet. Pass quiet=True to keep the fluid split "
+            "fluid queues and cannot show cross-class interference; use "
+            "repro_torch.sched (SchedSweep) for the joint shared-pool "
+            "simulation. Pass quiet=True to keep the fluid split "
             "deliberately.",
             UserWarning,
             stacklevel=2,
@@ -292,11 +292,14 @@ class ChunkedSweep:
             plan = self._plans[key] = build_class_plan(cls, L, eq7_factor=eq7_factor)
         return plan
 
-    def _launch_chunks(self, fn, cfg, streams, G: int, chunk: int, count: int, fold=None):
-        """ceil(G / chunk) launches over (cfg, *streams); returns the stacked
-        (G, count) output dict (on the device). Tail-chunk rows are
-        repetitions of row ``lo`` and sliced off before stacking, so padding
-        never leaks.
+    def _launch_chunks(self, fn, cfg, streams, G: int, chunk: int, count: int,
+                       broadcast: tuple = (), fold=None):
+        """ceil(G / chunk) launches over (cfg, *streams, *broadcast); returns
+        the stacked (G, count) output dict (on the device). Tail-chunk rows
+        are repetitions of row ``lo`` and sliced off before stacking, so
+        padding never leaks. ``broadcast`` tensors (already on the device)
+        are passed whole to every launch: grid-shared operands with no grid
+        axis, such as the task engine's trace pools.
 
         ``streams`` is a callable ``(idx) -> tuple of (chunk, ...) numpy
         blocks`` generating one chunk's host-side streams on demand from the
@@ -304,9 +307,10 @@ class ChunkedSweep:
         of workload draws.
 
         ``fold`` streams: called per launch as ``fold(out, cfg_np,
-        streams_np)`` with the chunk's (chunk, count) outputs, it returns
-        fixed-size per-row statistics which are stacked *instead of* the raw
-        block, so a streamed sweep never materializes O(G × T).
+        streams_np, lo)`` with the chunk's (chunk, count) outputs and the
+        grid index of its first row, it returns fixed-size per-row
+        statistics which are stacked *instead of* the raw block, so a
+        streamed sweep never materializes O(G × T).
         """
         outs = []
         engine = type(self).__name__
@@ -322,13 +326,14 @@ class ChunkedSweep:
                     streams_np = streams(idx)
                 with obs.span("sweep.launch", engine=engine):
                     out = fn({name: torch.from_numpy(v).to(dev) for name, v in cfg_np.items()},
-                             *(torch.from_numpy(s).to(dev) for s in streams_np), count)
+                             *(torch.from_numpy(s).to(dev) for s in streams_np), *broadcast,
+                             count)
                 self.stats.launches += 1
                 if fold is None:
                     outs.append({name: v[: hi - lo] for name, v in out.items()})
                 else:
                     with obs.span("sweep.fold", engine=engine):
-                        red = fold(out, cfg_np, streams_np)
+                        red = fold(out, cfg_np, streams_np, lo)
                     outs.append({name: v[: hi - lo] for name, v in red.items()})
                 del out
         self.stats.cases += G
@@ -346,8 +351,9 @@ def frontier_fold(w: int, bins: int):
     ``w`` is the warmup cut, ``bins`` any bound exceeding every chosen k.
     """
 
-    def fold(out, cfg_np, streams_np):
-        red = dict(frontier_block_reduce(out, *class_params(cfg_np, out["total"].device), w=w))
+    def fold(out, cfg_np, streams_np, lo):
+        red = dict(frontier_block_reduce(out, *class_params(cfg_np, out["total"].device), w=w,
+                                         first=lo))
         red.update(convergence_reduce(out["k"], w=w, bins=bins))
         return red
 

@@ -305,7 +305,7 @@ class TenantMix(Workload):
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(interarrivals (count,), Exp(1) draws (count, n_max), class ids
         (count,)) — everything one joint shared-pool grid point feeds
-        the reference package's ``repro.sched.scan.multiclass_scan_core``.
+        :func:`repro_torch.sched.scan.multiclass_scan_core`.
 
         RNG plumbing matches :meth:`Workload.device_arrays` draw for draw:
         interarrivals then exponentials from the same stream, and a

@@ -1,0 +1,266 @@
+"""Task-level sweep: exact (λ × policy × seed) grids per chunked launch.
+
+The port of the reference package's ``repro/taskq/sweep.py``. It mirrors
+:class:`repro_torch.fleet.sweep.FleetSweep` — the same
+:class:`~repro_torch.fleet.sweep.ChunkedSweep` bucket cache and chunked
+launches — but each grid row runs the exact task-level engine
+(:func:`repro_torch.taskq.engine.taskq_scan_core`) instead of the fluid
+scan, and the per-chunk-size delay pools are passed to every launch as one
+device copy shared by the whole grid (the reference's ``in_axes None``).
+
+Cases are plain :class:`repro_torch.fleet.sweep.SweepCase` grids (reuse
+``grid_cases``), so a fleet grid re-runs on the exact engine unchanged —
+plus ``PolicySpec.greedy()`` rows, which only this sweep accepts.
+Reductions reuse :func:`repro_torch.fleet.frontier.frontier_points`
+unchanged, and :func:`write_taskq_artifact` writes the ``BENCH_taskq.json``
+twin of the fleet artifact.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+
+from repro_torch import obs
+from repro_torch.coding.codec import pow2_bucket
+from repro_torch.core.traces import DevicePools
+from repro_torch.fleet.frontier import (
+    capacity_estimates,
+    convergence_stats,
+    frontier_points,
+    headline_ratios,
+)
+from repro_torch.fleet.shard import StreamedStats, resolve_stream
+from repro_torch.fleet.sweep import (
+    ChunkedSweep,
+    SweepCase,
+    SweepResult,
+    frontier_fold,
+    timeline_window,
+)
+from repro_torch.taskq.engine import taskq_scan_core
+from repro_torch.taskq.policies import encode_policy
+
+_ITEM_11 = "not ported yet (ROADMAP.md item 11, the obs device planes)"
+
+
+def taskq_streams(case: SweepCase, count: int, n_rows: int):
+    """One grid point's host-side draws: (interarrivals, pool row indices).
+
+    The draw order — workload gaps first, then row indices, from ONE
+    ``default_rng(case.seed)`` stream — is the contract both the sweep and
+    the oracle cross-validation rely on to feed identical randomness to
+    both engines (the reference's streams, draw for draw).
+    """
+    rng = np.random.default_rng(case.seed)
+    inter = case.resolved_workload().interarrivals(rng, count)
+    idx = rng.integers(n_rows, size=count).astype(np.int32)
+    return inter, idx
+
+
+@dataclasses.dataclass
+class TaskqResult(SweepResult):
+    """Stacked per-request outputs for every exact grid point — the layout
+    of :class:`repro_torch.fleet.sweep.SweepResult`, so the fleet's frontier
+    reductions consume it unchanged; here the delays are exact task-level
+    simulations."""
+
+
+class TaskqSweep(ChunkedSweep):
+    """Chunked, shape-bucketed sweep over exact task-level grid points.
+
+    ``q_cap`` bounds the backlog-length observable (see
+    :mod:`repro_torch.taskq.engine`); all cases of one run must share ``L``
+    (the thread-state width). Buckets are keyed on (chunk, pow2(T), L,
+    q_cap, table lengths, pool shape), the reference's key; their first
+    uses are counted in ``stats.traces``.
+    """
+
+    #: Floor of the pow2 time-axis bucket (the reference's default).
+    T_FLOOR = 512
+
+    def __init__(self, *, chunk: int = 64, q_cap: int = 128, mesh=None, device=None):
+        super().__init__(chunk=chunk, mesh=mesh, device=device)
+        if q_cap < 1:
+            raise ValueError("q_cap must be >= 1")
+        self.q_cap = q_cap
+
+    # -- bucket cache -------------------------------------------------------
+
+    def bucket_key(self, n_cases: int, count: int, L: int, hk_len: int,
+                   hn_len: int, pool_shape: tuple):
+        """The bucket a run with these shapes lands in (the reference's
+        compilation-cache key, unchanged)."""
+        t_b = pow2_bucket(count, self.T_FLOOR)
+        return (
+            self._chunk_bucket(n_cases),
+            t_b,
+            L,
+            self.q_cap,
+            hk_len,
+            hn_len,
+            tuple(pool_shape),
+            self.mesh_shape,
+            timeline_window(t_b),
+        )
+
+    def _build(self, key: tuple):
+        L, q_cap = key[2], key[3]
+
+        def launch(cfg, inter, idx, pools, sizes, count):
+            return taskq_scan_core(cfg, inter, idx, pools, sizes, L=L, q_cap=q_cap)
+
+        return launch
+
+    # -- the sweep ----------------------------------------------------------
+
+    def _stack_cfg(self, cases: list[SweepCase], hk_len: int, hn_len: int):
+        G = len(cases)
+        cfg = {
+            name: np.empty(G, np.float32)
+            for name in ("delta_bar", "delta_tilde", "psi_bar", "psi_tilde",
+                         "J", "L", "alpha", "r_max")
+        }
+        cfg["pol"] = np.empty(G, np.int32)
+        cfg["gk_max"] = np.empty(G, np.int32)
+        cfg["h_k"] = np.zeros((G, hk_len), np.float32)
+        cfg["h_n"] = np.zeros((G, hn_len), np.float32)
+        for i, case in enumerate(cases):
+            plan = (
+                self._plan_for(case.cls, case.L, case.policy.eq7_factor)
+                if case.policy.kind == "tofec" else None
+            )
+            enc = encode_policy(case.policy, case.cls, case.L, hk_len, hn_len, plan)
+            pr = case.cls.params
+            # delta/psi params ride along for the frontier's usage reduction
+            # (the engine itself reads delays from the trace pools).
+            cfg["delta_bar"][i] = pr.delta_bar
+            cfg["delta_tilde"][i] = pr.delta_tilde
+            cfg["psi_bar"][i] = pr.psi_bar
+            cfg["psi_tilde"][i] = pr.psi_tilde
+            cfg["J"][i] = case.cls.file_mb
+            cfg["L"][i] = case.L
+            cfg["alpha"][i] = enc.alpha
+            cfg["r_max"][i] = enc.r_max
+            cfg["pol"][i] = enc.pol
+            cfg["gk_max"][i] = enc.gk_max
+            cfg["h_k"][i] = enc.h_k
+            cfg["h_n"][i] = enc.h_n
+        return cfg
+
+    def run(self, cases: list[SweepCase], count: int, pools: DevicePools, *,
+            stream=None) -> TaskqResult:
+        """Evaluate every grid point exactly over ``count`` arrivals.
+
+        Host side: per-case RNG streams (:func:`taskq_streams`), ``count``
+        arrivals wide (the engine is causal, so the reference's zero-gap
+        padding up to the bucket's T is never built). Device side:
+        ceil(G / chunk) scan loops sharing one device copy of ``pools``.
+
+        ``stream`` (True or a :class:`repro_torch.fleet.shard.StreamSpec`)
+        folds each chunk into the fleet frontier statistics instead of
+        stacking the exact (G, count) block.
+
+        With ``REPRO_OBS`` on the run raises: the device telemetry planes
+        are not ported yet (``ROADMAP.md`` item 11).
+        """
+        if not cases:
+            raise ValueError("empty case grid")
+        if obs.enabled():
+            raise RuntimeError(
+                f"REPRO_OBS is on, but the sweep's device telemetry planes are {_ITEM_11}; "
+                "unset REPRO_OBS to run the sweep")
+        spec = resolve_stream(stream)
+        Ls = {c.L for c in cases}
+        if len(Ls) != 1:
+            raise ValueError(f"all cases of one run must share L, got {sorted(Ls)}")
+        L = Ls.pop()
+        n_need = max(c.cls.n_max for c in cases)
+        if pools.pools.shape[2] < n_need:
+            raise ValueError(
+                f"pool width {pools.pools.shape[2]} cannot serve "
+                f"n_max={n_need}; re-export with "
+                f"TraceStore.device_pools(n_max={n_need})"
+            )
+        traces0, launches0 = self.stats.traces, self.stats.launches
+        hk_len = max(c.cls.k_max for c in cases) + 1
+        hn_len = n_need + 1
+        key = self.bucket_key(len(cases), count, L, hk_len, hn_len, pools.pools.shape)
+        chunk = key[0]
+        cfg = self._stack_cfg(cases, hk_len, hn_len)
+
+        def chunk_streams(rows):
+            inter = np.empty((len(rows), count), np.float32)
+            idx = np.empty((len(rows), count), np.int32)
+            for j, i in enumerate(rows):
+                if j and i == rows[0]:  # tail pad: repeat the chunk's row 0
+                    inter[j], idx[j] = inter[0], idx[0]
+                    continue
+                inter[j], idx[j] = taskq_streams(cases[i], count, pools.n_rows)
+            return inter, idx
+
+        fn = self._fn_for(key)
+        fold = frontier_fold(int(count * spec.warmup_frac), hn_len) if spec else None
+        # The one device copy of the pools every chunk reads.
+        broadcast = (pools.pools.to(self.device), pools.sizes_mb.to(self.device))
+        stacked = self._launch_chunks(fn, cfg, chunk_streams, len(cases), chunk, count,
+                                      broadcast=broadcast, fold=fold)
+        return TaskqResult(
+            cases=list(cases),
+            out={} if spec else stacked,
+            cfg=cfg,
+            count=count,
+            compiles=self.stats.traces - traces0,
+            launches=self.stats.launches - launches0,
+            streamed=StreamedStats(spec.warmup_frac, count, stacked) if spec else None,
+            mesh_shape=self.mesh_shape,
+        )
+
+    def replay_flight(self, result: TaskqResult, pools: DevicePools, case_index: int, *,
+                      label: str | None = None):
+        """Re-run one grid point with the flight recorder on and return its
+        ``FlightLog`` — the host flight log is :data:`_ITEM_11`, so this
+        raises. The engine's flight arrays themselves are ported:
+        :func:`repro_torch.taskq.engine.taskq_scan` with ``flight=True``."""
+        raise NotImplementedError(f"replay_flight: the host FlightLog is {_ITEM_11}")
+
+
+def write_taskq_artifact(
+    path: str,
+    result: TaskqResult,
+    *,
+    warmup_frac: float = 0.05,
+    extra: dict | None = None,
+    flight=None,
+) -> dict:
+    """Reduce an exact sweep and write the ``BENCH_taskq.json`` artifact.
+
+    Reuses the fleet's frontier reductions (per-point delay stats, per-policy
+    capacities, convergence, headline ratios) on the exact per-request
+    delays. ``flight`` (a replayed ``FlightLog``'s block in the reference)
+    is :data:`_ITEM_11` and raises when given.
+    """
+    if flight is not None:
+        raise NotImplementedError(f"write_taskq_artifact(flight=...): the FlightLog is {_ITEM_11}")
+    points = frontier_points(result, warmup_frac)
+    artifact = {
+        "schema": "repro.taskq/BENCH_taskq/v1",
+        "meta": obs.run_meta(mesh_shape=getattr(result, "mesh_shape", ())),
+        "grid_size": len(result.cases),
+        "count": result.count,
+        "compiles": result.compiles,
+        "launches": result.launches,
+        "points": [p.to_dict() for p in points],
+        "capacity_req_s": capacity_estimates(points),
+        "convergence": convergence_stats(result, warmup_frac),
+        "headline": headline_ratios(points),
+    }
+    if extra:
+        artifact.update(extra)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(artifact, f, indent=1)
+    return artifact

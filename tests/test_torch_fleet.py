@@ -320,7 +320,9 @@ def test_sweep_refuses_what_is_not_ported():
         obs.set_enabled(None)
     with pytest.raises(NotImplementedError, match="item 12"):
         FleetSweep(mesh=2, device=CPU)
-    with pytest.raises(ValueError, match="greedy"):
+    # Greedy is not table-expressible; the refusal names the exact task
+    # engine that runs it.
+    with pytest.raises(ValueError, match=r"greedy.*repro_torch\.taskq\.TaskqSweep"):
         _sweep().run(grid_cases([5.0], [PolicySpec.greedy()], [0], CLS, L), count=16)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
@@ -330,6 +332,22 @@ def test_sweep_refuses_what_is_not_ported():
 # ---------------------------------------------------------------------------
 # Shared reductions
 # ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("first,n", [(0, 70), (2, 2), (60, 9), (64, 64), (130, 1)])
+def test_row_blocks_place_rows_by_grid_index(first, n):
+    """Grid row g is reduced at place g % ROW_BLOCK of a full block whatever
+    chunk it comes in (on the card a row's place sets its alignment, and so
+    the order of its float sum), and the rows come back in order."""
+    rows = {"g": torch.arange(first, first + n)}
+
+    def places(blk):
+        assert blk["g"].shape[0] == stats.ROW_BLOCK
+        return {"g": blk["g"], "place": torch.arange(stats.ROW_BLOCK)}
+
+    red = stats.reduce_row_blocks(places, rows, first=first)
+    assert red["g"].tolist() == list(range(first, first + n))
+    assert red["place"].tolist() == [g % stats.ROW_BLOCK for g in range(first, first + n)]
 
 
 def test_reductions_equal_reference_reductions():

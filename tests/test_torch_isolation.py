@@ -21,6 +21,8 @@ import k2_ablation
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
+print("SLICE", sorted(m for m in sys.modules
+                     if m.startswith(("repro_torch.taskq", "repro_torch.sched"))))
 print("BAD", bad)
 """
 
@@ -31,7 +33,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                          env=env, cwd=ROOT, timeout=240)
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
-    assert int(lines["LOADED"]) >= 20  # every module of the port was imported
+    assert int(lines["LOADED"]) >= 44  # every module of the port was imported
+    assert lines["SLICE"] == str([f"repro_torch.{pkg}{mod}" for pkg, mods in (
+        ("sched", ("", ".frontier", ".scan", ".sweep")),
+        ("taskq", ("", ".engine", ".policies", ".sweep"))) for mod in mods])
     assert lines["BAD"] == "[]", lines["BAD"]
 
 
