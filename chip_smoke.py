@@ -40,14 +40,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (12, 6) code's parity bit-matrix times the LSB-first bitplanes of one
    3 MiB object, repacked and checked against the numpy codec; K2's launch
    counter must show it ran;
-6. fleet — the paper's Fig. 7 grid at full width through ``FleetSweep``:
+6. serve — the closed loop (the paper's §III loop end to end) through
+   ``ClosedLoopServer`` at the main path's deployment feeding qwen1.5-0.5b
+   at full width (24 layers, d_model 1024, vocab 151,936, bfloat16, seeded
+   random weights): 128 objects whose first 1,024 int32 words are seeded
+   token ids, 4 rounds of 32 — raw reads, admission, K1 decode at the main
+   path's shape, bytes→tokens, prefill, 32 greedy tokens; every round's
+   tokens held against ``ServingEngine.generate`` on the stored prompts,
+   every pick against the host TOFEC policy and the write policy, one shape
+   bucket, K1 launched in each round, then a write coded under the fed-back
+   pick and read back; one more round under torch.profiler;
+7. fleet — the paper's Fig. 7 grid at full width through ``FleetSweep``:
    8 rates × (TOFEC, fixed-k(6), the 27 static codes), 3,500 arrivals per
    case, in 4 chunks of one bucket; each TOFEC row is held against the
    numpy oracle on the same draws, the paper's orderings are asserted, and a
    streamed run must equal the materialized one bit for bit; then one chunk
    once more under torch.profiler (wall, device busy, idle share, device
    kernels per scan step);
-7. taskq — Fig. 7's Greedy row and Fig. 9 in one ``TaskqSweep`` on the
+8. taskq — Fig. 7's Greedy row and Fig. 9 in one ``TaskqSweep`` on the
    exact task engine: 8 Greedy rates plus TOFEC and Greedy at 6 rates, 3,500
    arrivals each, one chunk, over the figures' shared-key trace pools
    (6 × 8,192 × 12); every row is held against the host event oracle on the
@@ -55,9 +65,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    run's agreement is printed), Greedy is printed beside the fleet's TOFEC
    row, Fig. 9's median std ratio must exceed 1.2, and a 500-arrival chunk
    is profiled;
-8. mpc — Fig. 7's MPC row: the host event oracle with ``MPCPolicy`` at the
+9. mpc — Fig. 7's MPC row: the host event oracle with ``MPCPolicy`` at the
    same 8 rates (host seconds, mean and p99 per rate);
-9. sched — the multiclass-disciplines figure through ``SchedSweep``: 2
+10. sched — the multiclass-disciplines figure through ``SchedSweep``: 2
    classes × 6 rates × (FIFO, priority, WFQ), 3,000 arrivals, one chunk,
    with the Poisson-split fleet baseline; the interference headline is
    held, a one-class mix must equal the fluid scan bit for bit and a
@@ -70,6 +80,7 @@ exits non-zero and prints no result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1028,6 +1039,261 @@ def profile_decode(step, rows, present, n: int, k: int, q: float) -> dict:
     return rec
 
 
+#: The closed loop (the paper's §III loop end to end): the proxy path's
+#: deployment feeding qwen1.5-0.5b at full width (src/repro/configs/
+#: qwen1_5_0_5b.py), 4 rounds of 32 prompts of 1,024 tokens, 32 generated.
+SERVE_MODEL, SERVE_OBJECTS, SERVE_ROUNDS, SERVE_BATCH = "qwen1.5-0.5b", 128, 4, 32
+SERVE_PROMPT, SERVE_STEPS = 1024, 32
+
+
+def run_serve(device, *, smoke: bool = False, n_objects: int = SERVE_OBJECTS,
+              rounds: int = SERVE_ROUNDS, per_round: int = SERVE_BATCH,
+              prompt_len: int = SERVE_PROMPT, steps: int = SERVE_STEPS,
+              file_bytes: int = FILE_BYTES, seed: int = 0) -> dict:
+    """The closed loop through ``ClosedLoopServer`` at the proxy path's
+    deployment, with ``SERVE_MODEL`` (its smoke config with ``smoke``) on
+    seeded random weights.
+
+    Each object's first ``prompt_len`` int32 words are seeded token ids, the
+    rest seeded bytes; objects are written through the proxy, then each
+    round serves ``per_round`` of them: raw reads, admission + K1 decode +
+    bytes→tokens + prefill, greedy decode. Raises if a round's tokens differ
+    from ``ServingEngine.generate`` over the stored prompts, a pick from the
+    host TOFEC policy's, the write policy from the pick, the rounds take more
+    than one shape bucket, K1 is not launched in a round, or a write after
+    the loop is not coded under the fed-back code and read back byte for
+    byte. On a card one more round runs under torch.profiler."""
+    import torch
+
+    from repro_torch.coding.codec import Codec
+    from repro_torch.coding.layout import layout_for_file
+    from repro_torch.core import PAPER_READ_3MB, PAPER_WRITE_3MB, FeedbackPolicy, TOFECPolicy
+    from repro_torch.kernels.gf2mm.gf2mm import gf2_rs_matmul_bytes
+    from repro_torch.models import get
+    from repro_torch.serve import ClosedLoopServer, FusedServingStep, ServePolicy, ServingEngine
+    from repro_torch.storage import LatencyStore, MemoryStore, Proxy
+
+    arch = get(SERVE_MODEL, smoke=smoke)
+    cfg = arch.cfg
+    t0 = time.monotonic()
+    params = arch.init(torch.Generator(device=device).manual_seed(seed))
+    _sync(device)
+    leaves = [t for grp in (params["embedding"], params["ln_f"]) for t in grp.values()]
+    leaves += [t for sub in params["layers"].values() for t in sub.values()]
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    max_seq = prompt_len + steps
+    kv_bytes = (2 * cfg.n_layers * per_round * max_seq * cfg.n_kv_heads * cfg.hd
+                * leaves[0].element_size())
+    rec: dict = {"model": cfg.name, "n_params": n_params, "param_bytes": param_bytes,
+                 "kv_cache_bytes": kv_bytes, "init_s": time.monotonic() - t0, "rounds": []}
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}; {n_params:,} parameters "
+          f"({param_bytes / 1e9:.3f} GB) from seed {seed} in {rec['init_s']:.3f} s; KV cache "
+          f"{per_round} x {max_seq} = {kv_bytes / 1e9:.3f} GB", flush=True)
+
+    cls_ = request_class()
+    layout = layout_for_file(file_bytes, K_MAX, R_MAX)
+    codec = Codec("kernel", device=device)
+    store = LatencyStore(MemoryStore(), PAPER_READ_3MB, PAPER_WRITE_3MB, time_scale=1e-3,
+                         seed=seed)
+    write_policy = FeedbackPolicy(layout.N, layout.K)
+    proxy = Proxy(store, TOFECPolicy.for_classes([cls_], L_THREADS), L=L_THREADS, codec=codec,
+                  write_policy=write_policy)
+    try:
+        rng = np.random.default_rng(seed)
+        prompts = rng.integers(0, cfg.vocab, (n_objects, prompt_len), dtype=np.int32)
+        t0 = time.monotonic()
+        reqs = [proxy.write_async(f"lm/{i}", layout,
+                                  prompts[i].tobytes() + rng.bytes(file_bytes - 4 * prompt_len))
+                for i in range(n_objects)]
+        if not all(proxy.wait(r, timeout=600).ok for r in reqs):
+            raise AssertionError("a proxy write failed")
+        proxy.flush_writes(timeout=600)
+        rec["write_s"] = time.monotonic() - t0
+        print(f"[serve] wrote {n_objects} x {file_bytes} B (prompts of {prompt_len} tokens) "
+              f"through the proxy in {rec['write_s']:.3f} s", flush=True)
+
+        engine = ServingEngine(arch, params, max_seq=max_seq)
+        step = FusedServingStep.for_policy(ServePolicy.tofec(), cls_, L_THREADS, codec=codec)
+        server = ClosedLoopServer(engine, proxy, layout, step, prompt_len=prompt_len)
+        host = TOFECPolicy.for_classes([cls_], L_THREADS)
+
+        def serve(r: int, ids: list[int], around=contextlib.nullcontext()) -> dict:
+            """Round ``r`` over objects ``ids`` (the round alone inside
+            ``around``), checked."""
+            keys = [f"lm/{i}" for i in ids]
+            k1_before = gf2_rs_matmul_bytes.launches
+            with around:
+                t0 = time.monotonic()
+                res = server.serve_round(keys, steps=steps)
+                wall_ms = (time.monotonic() - t0) * 1e3
+            k1 = gf2_rs_matmul_bytes.launches - k1_before
+            if res.ok != [True] * len(keys) or res.served_keys != keys:
+                raise AssertionError(f"round {r}: a prompt read failed: {res.ok}")
+            want = host.select(q=len(keys), idle=0)
+            if res.next_code != want:
+                raise AssertionError(f"round {r}: device pick {res.next_code} != host {want}")
+            if write_policy.code != res.next_code:
+                raise AssertionError(f"round {r}: write policy {write_policy.code} != pick "
+                                     f"{res.next_code}")
+            if k1 < 1 and device.type == "cuda":  # the plain version's calls do not count
+                raise AssertionError(f"round {r}: K1 was not launched")
+            t0 = time.monotonic()
+            direct = engine.generate(prompts[ids], steps)
+            ref_ms = (time.monotonic() - t0) * 1e3
+            if not np.array_equal(res.tokens, direct):
+                differ = int((res.tokens != direct).sum())
+                raise AssertionError(f"round {r}: closed-loop tokens differ from "
+                                     f"ServingEngine.generate on {differ} of {direct.size} "
+                                     "positions")
+            ph = res.phase_ms
+            rnd = {"round": r, "wall_ms": wall_ms, **{f"{k}_ms": v for k, v in ph.items()},
+                   "generate_direct_ms": ref_ms, "k1_launches": k1,
+                   "prompt_tok_per_s": len(keys) * prompt_len / (ph["launch"] / 1e3),
+                   "gen_tok_per_s": len(keys) * steps / (ph["generate"] / 1e3),
+                   "read_codes": sorted({tuple(c) for c in res.codes}),
+                   "next_pick": list(res.next_code)}
+            print(f"[serve] round {r}: {wall_ms:.3f} ms wall; fetch {ph['fetch']:.3f} ms, fused "
+                  f"launch (upload + admission + K1 + prefill) {ph['launch']:.3f} ms, generate "
+                  f"{ph['generate']:.3f} ms; {rnd['prompt_tok_per_s']:.0f} prompt tok/s, "
+                  f"{rnd['gen_tok_per_s']:.1f} generated tok/s; K1 launches {k1}; read codes "
+                  f"{rnd['read_codes']}, pick {res.next_code} = host, = write policy; tokens "
+                  f"= ServingEngine.generate ({ref_ms:.3f} ms)", flush=True)
+            return rnd
+
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        for r in range(rounds):
+            rec["rounds"].append(serve(r, list(range(r * per_round, (r + 1) * per_round))))
+        if device.type == "cuda":
+            rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
+            print(f"[serve] peak device memory over the rounds: "
+                  f"{rec['peak_mem_bytes'] / 1e9:.3f} GB", flush=True)
+        if server.traces != 1:
+            raise AssertionError(f"{server.traces} shape buckets for {rounds} rounds, want 1")
+
+        payload = rng.bytes(file_bytes)
+        t0 = time.monotonic()
+        if not proxy.wait(server.put("lm/put", payload), timeout=600).ok:
+            raise AssertionError("the write after the loop failed")
+        proxy.flush_writes(timeout=600)
+        wres = [x for x in proxy.results if x.op == "write" and x.key == "lm/put"]
+        back = proxy.read("lm/put", layout, payload_len=file_bytes, timeout=600)
+        rec["put_ms"] = (time.monotonic() - t0) * 1e3
+        if (wres[-1].n, wres[-1].k) != write_policy.code:
+            raise AssertionError(f"the write was coded {(wres[-1].n, wres[-1].k)}, the fed-back "
+                                 f"code is {write_policy.code}")
+        if not (back.ok and back.data == payload):
+            raise AssertionError("the write after the loop did not read back byte for byte")
+        rec["put_code"] = list(write_policy.code)
+        print(f"[serve] write after the loop coded {write_policy.code} (the fed-back pick), "
+              f"read back byte for byte, {rec['put_ms']:.3f} ms; {server.traces} shape bucket "
+              f"for {rounds} rounds", flush=True)
+        if device.type == "cuda":
+            rec["profile"] = profile_serve_round(serve, engine, prompts, list(range(per_round)),
+                                                 rec["rounds"][1:], steps)
+    finally:
+        proxy.close()
+    return rec
+
+
+def _device_top(events, n: int) -> list:
+    """[name, count, ms] of the ``n`` device event names with the most time."""
+    by_name: dict[str, list] = {}
+    for ev in events:
+        row = by_name.setdefault(ev.name, [ev.name, 0, 0.0])
+        row[1] += 1
+        row[2] += (ev.time_range.end - ev.time_range.start) / 1e3
+    return sorted(by_name.values(), key=lambda r: -r[2])[:n]
+
+
+def _stream_and_device_ms(fn) -> tuple[float, float, list]:
+    """``fn()`` once unprofiled, timed by CUDA events (the stream clock: the
+    device's work and its idle gaps), then once under torch.profiler: (stream
+    ms, device busy ms under the profiler, device events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_ms, events = device_spans(prof)
+    return start.elapsed_time(end), busy_ms, events
+
+
+def profile_serve_round(serve, engine, prompts, ids: list[int], warm: list[dict],
+                        steps: int) -> dict:
+    """One more closed-loop round (``serve(r, ids, around)``, checked as the
+    others) with ``serve_round`` alone under torch.profiler: its device busy
+    time, its idle share against the unprofiled warm rounds' mean wall
+    (``warm``; the profiler's host overhead stretches its own round's wall,
+    so that share is printed beside it but not kept as the round's) and the
+    largest device events. Then the round's two device phases alone on the
+    same prompts, each unprofiled on the stream clock and profiled for its
+    device time: the prefill, and the ``steps - 1`` decode steps a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    rnd = serve(-1, ids, prof)
+    busy_ms, events = device_spans(prof)
+    if busy_ms <= 0:
+        raise AssertionError("the profiler recorded no device time for the serve round")
+    warm_ms = float(np.mean([w["wall_ms"] for w in warm]))
+    copies = {n: (c, ms) for n, c, ms in _device_top(events, len(events))
+              if n.startswith("Memcpy")}
+    rec = {"wall_ms": rnd["wall_ms"], "warm_wall_ms": warm_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / warm_ms,
+           "device_idle_share_profiled": 1.0 - busy_ms / rnd["wall_ms"],
+           "device_events": len(events), "copies": copies, "top": _device_top(events, 10),
+           "round": rnd}
+    print(f"[serve] profiled round ({len(ids)} prompts, serve_round alone): {busy_ms:.3f} ms "
+          f"device busy, {len(events)} device events; idle share "
+          f"{rec['device_idle_share']:.4f} of the unprofiled warm rounds' mean wall "
+          f"{warm_ms:.3f} ms ({rec['device_idle_share_profiled']:.4f} of this round's "
+          f"{rnd['wall_ms']:.3f} ms, stretched by the profiler)", flush=True)
+    for name, (count, ms) in sorted(copies.items()):
+        print(f"[serve]   copy {ms:10.4f} ms  x{count:<5d} {name}", flush=True)
+    for name, count, ms in rec["top"]:
+        print(f"[serve]   {ms:10.4f} ms  x{count:<6d} {name[:140]}", flush=True)
+
+    arch, params = engine.arch, engine.params
+    toks = torch.from_numpy(prompts[ids]).to(params["embedding"]["embed"].device)
+    logits, cache = arch.prefill_tokens(params, toks, max_seq=engine.max_seq)
+    pre_ms, pre_busy, _ = _stream_and_device_ms(
+        lambda: arch.prefill_tokens(params, toks, max_seq=engine.max_seq))
+
+    def decode():  # on a fresh copy of the primed cache: decode_step writes in place
+        engine.continue_greedy(logits, {k: v.clone() for k, v in cache.items()}, steps)
+
+    dec_ms, dec_busy, dec_events = _stream_and_device_ms(decode)
+    n_dec = steps - 1
+    rec["prefill"] = {"stream_ms": pre_ms, "device_busy_ms": pre_busy}
+    rec["decode_step"] = {"stream_ms": dec_ms / n_dec, "device_busy_ms": dec_busy / n_dec,
+                          "device_share": dec_busy / dec_ms,
+                          "device_events": len(dec_events) / n_dec,
+                          "top": _device_top(dec_events, 6)}
+    d = rec["decode_step"]
+    print(f"[serve] prefill alone: {pre_ms:.3f} ms on the stream clock, {pre_busy:.3f} ms "
+          f"device busy (profiled)", flush=True)
+    print(f"[serve] decode alone, {n_dec} steps: {d['stream_ms']:.3f} ms a step on the stream "
+          f"clock, {d['device_busy_ms']:.3f} ms device busy a step (profiled; the step's cache "
+          f"clone included once in the {n_dec}), device share {d['device_share']:.4f}, "
+          f"{d['device_events']:.1f} device events a step", flush=True)
+    for name, count, ms in d["top"]:
+        print(f"[serve]   decode {ms / n_dec:9.4f} ms a step  x{count / n_dec:<6.1f} "
+              f"{name[:140]}", flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1074,6 +1340,16 @@ def main() -> int:
     if k2_launches == 0:
         raise AssertionError("K2 was not launched on its path")
 
+    gf2mm.gf2_rs_matmul_bytes.launches = 0
+    serve = run_serve(device)
+    serve_launches = gf2mm.gf2_rs_matmul_bytes.launches
+    print(f"[serve] K1 launches in the phase: {serve_launches} (per round "
+          f"{[r['k1_launches'] for r in serve['rounds']]}, the rest the proxy's write and read "
+          "codec calls and the profiled round)", flush=True)
+    if serve_launches < SERVE_ROUNDS:
+        raise AssertionError(f"K1 launched {serve_launches} times in {SERVE_ROUNDS} rounds")
+    torch.cuda.empty_cache()
+
     fleet = run_fleet(device)
     run_taskq(device, fleet_tofec=fleet["tofec_points"])
     run_mpc()
@@ -1085,6 +1361,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/gf2mm/csrc/gf2_rs_bytes.cu",
         "replaces": "src/repro/kernels/gf2mm/gf2mm.py:154",
         "launches": launches,
+        "launches_by_path": {"main": launches, "serve": serve_launches},
         "byte_equal": k1["byte_equal"],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],

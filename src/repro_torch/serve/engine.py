@@ -1,24 +1,40 @@
-"""The fused serving step: TOFEC admission + batched MDS coding per round.
+"""Batched serving engine with TOFEC-admitted prompt storage.
 
-The port of the first half of the reference package's
-``repro/serve/engine.py``. The proxy returns raw chunks (``raw=True``) and
-one call of :meth:`FusedServingStep.decode_batch` (or ``encode_batch``) runs
-the admission update and the batched codec work back to back on the device:
-the controller's carry stays there between rounds, and the codec's K1 launch
-follows the controller's update on the same stream. The controller is
-runtime data (:class:`ServeTables`): TOFEC, static, fixed-k (threshold form,
-same encodings as the fleet sweeps) and MPC (cost-model argmin,
-:func:`repro_torch.core.controller.mpc_step`) all run through one step, so
-swapping the policy swaps tensors.
+The port of the reference package's ``repro/serve/engine.py``. Flow per
+request: the prompt blob is fetched from the object store through the TOFEC
+proxy (erasure-coded ranged reads, adaptive (n, k) from the proxy backlog),
+tokenized prompts are batched, prefilled, and decoded with the arch's cached
+``decode_step``. The storage path is the paper's system; the LM path is the
+substrate it feeds.
+
+Three fetch paths:
+
+* **unfused** — :meth:`ServingEngine.fetch_prompts` submits the whole round
+  through :meth:`Proxy.read_many`; the proxy batch-decodes completions per
+  admission round.
+* **fused** — pass a :class:`FusedServingStep`: the proxy returns raw chunks
+  (``raw=True``) and one call of :meth:`FusedServingStep.decode_batch` (or
+  ``encode_batch``) runs the admission update and the batched codec work
+  back to back on the device: the controller's carry stays there between
+  rounds, and the codec's K1 launch follows the controller's update on the
+  same stream. The controller is runtime data (:class:`ServeTables`):
+  TOFEC, static, fixed-k (threshold form, same encodings as the fleet
+  sweeps) and MPC (cost-model argmin,
+  :func:`repro_torch.core.controller.mpc_step`) all run through one step,
+  so swapping the policy swaps tensors.
+* **closed loop** — :class:`ClosedLoopServer` extends the fused step with
+  the LM prefill: admission update → batched decode (K1) → bytes→tokens →
+  prefill run back to back on the device with no host round trip between
+  them, and the controller's (n, k) pick is pushed into the proxy's write
+  policy (:class:`repro_torch.core.controller.FeedbackPolicy`) so the next
+  admission round's queued writes encode under the adapted code. This is
+  the paper's §III loop closed end to end.
 
 Shapes are bucketed exactly like :mod:`repro_torch.coding.codec` (powers of
 two on batch / parity rows / strip width), and the per-item decode matrices
 are runtime inputs built host-side from the cached Cauchy tables;
 ``stats.traces`` counts the first use of each shape bucket, which keeps the
 reference's bound on buckets visible (asserted in the tests).
-
-The LM half (``ServingEngine``, ``tokens_from_strips``,
-``ClosedLoopServer``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
+import time
 
 import numpy as np
 import torch
@@ -33,7 +50,9 @@ import torch
 from repro_torch import obs
 from repro_torch.coding import codec as codec_mod
 from repro_torch.coding import rs
+from repro_torch.coding.layout import SharedKeyLayout
 from repro_torch.core.controller import (
+    FeedbackPolicy,
     MPCTables,
     TofecTables,
     _f32,
@@ -44,6 +63,8 @@ from repro_torch.core.controller import (
 )
 from repro_torch.core.delay_model import RequestClass
 from repro_torch.core.static_optimizer import build_class_plan
+from repro_torch.models.registry import Arch
+from repro_torch.storage.proxy import Proxy, store_coded_object
 
 #: ServeTables.pol ids: threshold-table controllers (tofec / static / fixedk)
 #: vs the MPC cost-model argmin.
@@ -221,7 +242,27 @@ def _device_codec(codec: codec_mod.Codec | None) -> codec_mod.Codec:
     return codec
 
 
-class FusedServingStep:
+class _BucketStats:
+    """``stats`` (a :class:`obs.CompileStats`) whose ``traces`` counts the
+    first use of each shape bucket; ``.traces`` is the public pin."""
+
+    def __init__(self, label: str):
+        self.stats = obs.CompileStats(label=label)
+        self._seen: set[tuple] = set()
+        self._lock = threading.Lock()
+
+    @property
+    def traces(self) -> int:
+        return self.stats.traces
+
+    def _note_bucket(self, key: tuple) -> None:
+        with self._lock:
+            if key not in self._seen:
+                self._seen.add(key)
+                self.stats.traces += 1
+
+
+class FusedServingStep(_BucketStats):
     """One step per serving round: admission update + batched MDS codec work
     (encode or decode), back to back on the device.
 
@@ -246,15 +287,8 @@ class FusedServingStep:
             tables = ServeTables.from_tofec(tables.to(self.device), alpha=alpha)
         self.tables = tables.to(self.device)
         self.alpha = alpha
-        # First uses of each shape bucket; ``.traces`` is the public pin.
-        self.stats = obs.CompileStats(label="serve.FusedServingStep")
-        self._seen: set[tuple] = set()
-        self._lock = threading.Lock()
+        super().__init__("serve.FusedServingStep")
         self.reset()
-
-    @property
-    def traces(self) -> int:
-        return self.stats.traces
 
     @classmethod
     def for_class(cls, request_class, L: int, *, codec: codec_mod.Codec | None = None,
@@ -282,12 +316,6 @@ class FusedServingStep:
         """Swap the controller live. Same table shapes → no new bucket."""
         self.tables = tables.to(self.device)
 
-    def _note_bucket(self, key: tuple) -> None:
-        with self._lock:
-            if key not in self._seen:
-                self._seen.add(key)
-                self.stats.traces += 1
-
     def _admit(self, q, dt) -> tuple[torch.Tensor, torch.Tensor]:
         self.carry, n_nxt, k_nxt = serve_policy_step(self.carry, q, dt, self.tables)
         return n_nxt, k_nxt
@@ -298,6 +326,24 @@ class FusedServingStep:
         return torch.from_numpy(np.ascontiguousarray(arr, np.uint8)).to(self.device), False
 
     # -- fused entry points ----------------------------------------------------
+
+    def decode_on_device(self, rows: torch.Tensor, present, *, n: int, k: int, q: float,
+                         dt: float = -1.0):
+        """Admission update + batched reconstruct of (batch, k, B) rows
+        already on the device, with no host sync: returns the bucket-padded
+        decoded data, the picked (n, k) as 0-d device tensors, and the
+        bucket key. Counts nothing; :meth:`decode_batch` and the closed loop
+        do."""
+        batch = rows.shape[0]
+        present = codec_mod._host_present(present, batch, k)
+        mats = self.codec.decode_mats(present, n, k)
+        mats_p, rows_p, key = self.codec.pad_to_bucket("dec", mats, rows, n, k)
+        backend = self.codec.backend
+        with obs.span("serve.decode_batch", bucket=str(key), batch=batch):
+            prepped = backend.prep_mats(mats_p)
+            n_nxt, k_nxt = self._admit(q, dt)
+            out = backend.matmul_prepped(prepped, rows_p)
+        return out, n_nxt, k_nxt, key
 
     def decode_batch(self, rows, present, *, n: int, k: int, q: float,
                      dt: float = -1.0):
@@ -315,15 +361,8 @@ class FusedServingStep:
         if single:
             rows = rows[None]
         batch, _, B = rows.shape
-        present = codec_mod._host_present(present, batch, k)
-        mats = self.codec.decode_mats(present, n, k)
-        mats_p, rows_p, key = self.codec.pad_to_bucket("dec", mats, rows, n, k)
+        out, n_nxt, k_nxt, key = self.decode_on_device(rows, present, n=n, k=k, q=q, dt=dt)
         self._note_bucket(key)
-        backend = self.codec.backend
-        with obs.span("serve.decode_batch", bucket=str(key), batch=batch):
-            prepped = backend.prep_mats(mats_p)
-            n_nxt, k_nxt = self._admit(q, dt)
-            out = backend.matmul_prepped(prepped, rows_p)
         self.stats.launches += 1
         data = out[:batch, :k, :B]
         if not is_tensor:
@@ -360,3 +399,290 @@ class FusedServingStep:
         if not is_tensor:
             coded = coded.cpu().numpy()
         return (coded[0] if single else coded), (int(n_nxt), int(k_nxt))
+
+
+def tokens_from_strips(data: torch.Tensor, k: int, strip_bytes: int,
+                       prompt_len: int) -> torch.Tensor:
+    """Bytes→tokens on the device: (batch, ≥k, ≥strip_bytes) decoded uint8
+    strips → (batch, prompt_len) int32, little-endian 4-byte words.
+
+    The slice order matters: padding must come OFF before the flatten
+    (slicing after would interleave pad bytes into the token stream). The
+    words combine in int32, as the reference's do, so a high byte ≥ 128
+    gives a negative id (which the closed loop's clip sends to 0).
+    """
+    flat = data[:, :k, :strip_bytes].reshape(data.shape[0], k * strip_bytes)
+    by = flat[:, : prompt_len * 4].reshape(-1, prompt_len, 4).to(torch.int32)
+    return by[..., 0] | (by[..., 1] << 8) | (by[..., 2] << 16) | (by[..., 3] << 24)
+
+
+#: How many times :meth:`ServingEngine.fetch_prompts` resubmits reads that
+#: failed.
+FETCH_RETRIES = 3
+
+
+@dataclasses.dataclass
+class ServeResult:
+    tokens: np.ndarray  # (B, steps) generated ids
+    storage_total_s: list[float]  # per-request proxy read delays
+    codes: list[tuple[int, int]]  # (n, k) used per prompt fetch
+    next_code: tuple[int, int] | None = None  # fused path: controller's pick
+
+
+class ServingEngine:
+    """Prefill + greedy cached decode of an :class:`Arch` on the device its
+    parameters lie on."""
+
+    def __init__(self, arch: Arch, params, *, max_seq: int = 128):
+        self.arch = arch
+        self.params = params
+        self.max_seq = max_seq
+        self.device = params["embedding"]["embed"].device
+
+    # -- storage integration -------------------------------------------------
+
+    @staticmethod
+    def store_prompt(store, key: str, layout: SharedKeyLayout, tokens: np.ndarray, *,
+                     codec: codec_mod.Codec | None = None):
+        store_coded_object(store, key, layout, np.asarray(tokens).astype(np.int32).tobytes(),
+                           codec=codec)
+
+    def fetch_prompts(
+        self, proxy: Proxy, layout: SharedKeyLayout, keys: list[str], prompt_len: int,
+        *, fused: FusedServingStep | None = None,
+    ) -> tuple[np.ndarray, list[float], list[tuple[int, int]], tuple[int, int] | None]:
+        """Batched prompt fetch: the whole round is submitted up front (the
+        proxy's policy sees it as backlog) and reconstructed batched — by the
+        proxy's admission round (unfused) or by ``fused``'s admission+decode
+        step (raw chunks in, payloads out).
+
+        Reads that exhaust their n − k failure budget (the backlog-adapted
+        code can be as lean as (1, 1)) are resubmitted up to
+        :data:`FETCH_RETRIES` times; the retry round is smaller, so the
+        policy re-picks with more redundancy. Reported delays accumulate across attempts (what the
+        client actually waited); codes report the attempt that served."""
+        payload_len = prompt_len * 4
+        raw = fused is not None
+        results = proxy.read_many(keys, layout, payload_len, raw=raw)
+        failed_s = [0.0] * len(keys)
+        for _ in range(FETCH_RETRIES):
+            bad_idx = [i for i, r in enumerate(results) if not r.ok]
+            if not bad_idx:
+                break
+            for i in bad_idx:
+                failed_s[i] += results[i].total_s
+            redo = proxy.read_many([keys[i] for i in bad_idx], layout, payload_len, raw=raw)
+            for i, r in zip(bad_idx, redo):
+                results[i] = r
+        bad = [k for k, r in zip(keys, results) if not r.ok]
+        if bad:
+            raise RuntimeError(f"prompt fetch failed for {', '.join(bad)}")
+        delays = [r.total_s + extra for r, extra in zip(results, failed_s)]
+        codes = [(r.n, r.k) for r in results]
+        if fused is None:
+            toks = [np.frombuffer(r.data, np.int32) for r in results]
+            return np.stack(toks), delays, codes, None
+        rows, present = layout.gather_rows_batch([(r.k, r.chunks) for r in results])
+        data, next_code = fused.decode_batch(rows, present, n=layout.N, k=layout.K,
+                                             q=len(keys))
+        toks = [np.frombuffer(data[i].reshape(-1)[:payload_len].tobytes(), np.int32)
+                for i in range(len(results))]
+        return np.stack(toks), delays, codes, next_code
+
+    # -- generation -----------------------------------------------------------
+
+    def continue_greedy(self, logits: torch.Tensor, cache, steps: int) -> torch.Tensor:
+        """Greedy generation from prefill's (logits, cache): (B, steps) int32
+        ids, left on the device (no host sync)."""
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out = [tok[:, 0]]
+        for _ in range(steps - 1):  # the reference's last decode is never read
+            logits, cache = self.arch.decode_step(self.params, tok, cache)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.append(tok[:, 0])
+        return torch.stack(out, dim=1)
+
+    def generate(self, prompts: np.ndarray, steps: int) -> np.ndarray:
+        """prompts: (B, S) int32 → (B, steps) greedily generated ids."""
+        tokens = torch.from_numpy(np.asarray(prompts, np.int32)).to(self.device)
+        logits, cache = self.arch.prefill(self.params, {"tokens": tokens},
+                                          max_seq=self.max_seq)
+        return self.continue_greedy(logits, cache, steps).cpu().numpy()
+
+    def serve(
+        self,
+        proxy: Proxy,
+        layout: SharedKeyLayout,
+        keys: list[str],
+        *,
+        prompt_len: int,
+        steps: int,
+        fused: FusedServingStep | None = None,
+    ) -> ServeResult:
+        prompts, delays, codes, next_code = self.fetch_prompts(
+            proxy, layout, keys, prompt_len, fused=fused
+        )
+        gen = self.generate(prompts, steps)
+        return ServeResult(tokens=gen, storage_total_s=delays, codes=codes,
+                           next_code=next_code)
+
+
+@dataclasses.dataclass
+class ClosedLoopResult:
+    tokens: np.ndarray  # (G, steps) generated ids, one row per SERVED key
+    ok: list[bool]  # per input key: did its read survive (per-item mask)
+    served_keys: list[str]  # keys in tokens' row order (the ok subset)
+    codes: list[tuple[int, int]]  # read (n, k) per served key
+    next_code: tuple[int, int]  # controller's pick, pushed to the write policy
+    storage_total_s: list[float]  # proxy read delays per served key
+    #: the round's phases in ms: "fetch" (proxy reads + row gather, host
+    #: clock), "launch" (rows upload + admission + decode + prefill) and
+    #: "generate" (the decode loop), the last two on the device's stream
+    #: clock on a card (CUDA events), the host clock on the CPU.
+    phase_ms: dict[str, float] = dataclasses.field(default_factory=dict)
+
+
+def _mark(device: torch.device):
+    """A point on the device's stream (a recorded CUDA event), or on the host
+    clock for the CPU. Reading a CUDA mark needs the work before it done."""
+    if device.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def _ms(a, b) -> float:
+    return a.elapsed_time(b) if isinstance(a, torch.cuda.Event) else (b - a) * 1e3
+
+
+class ClosedLoopServer(_BucketStats):
+    """The paper's proxy as a CLOSED loop, one device step per round.
+
+    Each :meth:`serve_round`:
+
+    1. fetches the round's prompts through the proxy (``raw=True`` — chunks
+       only, per-item error masks; a partially-failed item drops out of the
+       round instead of wedging it),
+    2. runs admission update (policy as runtime data,
+       :func:`serve_policy_step`) → batched MDS decode (K1) → bytes→tokens →
+       LM prefill back to back on the device, with no host round trip
+       between those stages (the first two are
+       :meth:`FusedServingStep.decode_on_device`),
+    3. finishes generation with the engine's cached ``decode_step``,
+    4. pushes the controller's (n, k) into the proxy's write policy when it
+       is a :class:`repro_torch.core.controller.FeedbackPolicy`, so writes
+       queued for the next admission round encode under the adapted code.
+       (The pick is read back after generation, which forces the device
+       work anyway, so the round never stalls on a mid-round sync.)
+
+    The backlog signal is the round's request count. ``stats.traces``
+    counts the first use of each shape bucket: the codec's decode bucket
+    extended with (prompt_len, strip_bytes), the prefill's shape inputs.
+    Batch varies within pow2 buckets; prefill and decode run at the padded
+    batch and rows are cut to the served subset at the end.
+
+    The device telemetry of the reference's server (``metrics``,
+    ``timeline``, ``flight``) is not ported yet (ROADMAP item 11): the
+    properties return None, and a round with ``REPRO_OBS`` on raises.
+    """
+
+    def __init__(self, engine: ServingEngine, proxy: Proxy, layout: SharedKeyLayout,
+                 step: FusedServingStep, *, prompt_len: int):
+        if prompt_len * 4 > layout.file_bytes:
+            raise ValueError(
+                f"prompt_len {prompt_len} needs {prompt_len * 4} bytes but the "
+                f"layout holds {layout.file_bytes}"
+            )
+        if engine.device != step.device:
+            raise ValueError(f"the engine's parameters are on {engine.device}, the fused "
+                             f"step's codec on {step.device}")
+        self.engine = engine
+        self.proxy = proxy
+        self.layout = layout
+        self.step = step
+        self.prompt_len = prompt_len
+        pol = proxy.write_policy
+        self.write_policy = pol if isinstance(pol, FeedbackPolicy) else None
+        super().__init__("serve.ClosedLoopServer")
+        self._last_now: float | None = None
+
+    @property
+    def metrics(self):
+        """The reference's device ``MetricsBuf``: not ported yet (ROADMAP
+        item 11), so None."""
+        return None
+
+    @property
+    def timeline(self):
+        """The reference's device ``TimelineBuf``: not ported yet (ROADMAP
+        item 11), so None."""
+        return None
+
+    @property
+    def flight(self):
+        """The reference's per-round ``FlightRing``: not ported yet (ROADMAP
+        item 11), so None."""
+        return None
+
+    def put(self, key: str, payload: bytes, cls_id: int = 0):
+        """Queue a write through the proxy (encodes under the fed-back code
+        at the next admission round). Returns the async request handle."""
+        return self.proxy.write_async(key, self.layout, payload, cls_id)
+
+    def serve_round(self, keys: list[str], *, steps: int) -> ClosedLoopResult:
+        """One closed-loop serving round over ``keys``; see class docstring."""
+        if obs.enabled():
+            raise RuntimeError(
+                "REPRO_OBS is on, but the closed loop's device telemetry (metrics, "
+                "timeline, flight) is not ported yet (ROADMAP.md item 11); unset "
+                "REPRO_OBS to serve")
+        payload_len = self.prompt_len * 4
+        t0 = time.perf_counter()
+        results = self.proxy.read_many(keys, self.layout, payload_len, raw=True)
+        ok = [r.ok for r in results]
+        good = [r for r in results if r.ok]
+        if not good:
+            raise RuntimeError(f"all {len(keys)} prompt fetches failed this round")
+        rows, present = self.layout.gather_rows_batch([(r.k, r.chunks) for r in good])
+        phase_ms = {"fetch": (time.perf_counter() - t0) * 1e3}
+        now = time.monotonic()
+        dt = -1.0 if self._last_now is None else max(now - self._last_now, 1e-9)
+        self._last_now = now
+
+        arch, device = self.engine.arch, self.step.device
+        mark0 = _mark(device)
+        rows_t, _ = self.step._upload(rows)
+        data, n_nxt, k_nxt, bkey = self.step.decode_on_device(
+            rows_t, present, n=self.layout.N, k=self.layout.K, q=float(len(keys)), dt=dt)
+        # The reference's key; its last field (telemetry collection) is off.
+        self._note_bucket(("pfd", *bkey, self.prompt_len, self.layout.strip_bytes, False))
+        toks = tokens_from_strips(data, self.layout.K, self.layout.strip_bytes,
+                                  self.prompt_len)
+        # Bucket-padding rows decode to zeros; the clip keeps any stray
+        # word (a high byte ≥ 128 is negative in int32) inside the table.
+        toks = torch.clamp(toks, 0, arch.cfg.vocab - 1)
+        logits, cache = arch.prefill_tokens(self.engine.params, toks,
+                                            max_seq=self.engine.max_seq)
+        self.stats.launches += 1
+        mark1 = _mark(device)
+        # Generation continues at the padded batch; rows are cut to the
+        # served subset at the end.
+        gen = self.engine.continue_greedy(logits, cache, steps)
+        mark2 = _mark(device)
+        tokens = gen[: len(good)].cpu().numpy()
+        # The pick comes to the host only now: generation forced the launch,
+        # so this read costs no stall.
+        next_code = (int(n_nxt), int(k_nxt))
+        phase_ms["launch"], phase_ms["generate"] = _ms(mark0, mark1), _ms(mark1, mark2)
+        if self.write_policy is not None:
+            self.write_policy.push(*next_code)  # close the write loop
+        return ClosedLoopResult(
+            tokens=tokens,
+            ok=ok,
+            served_keys=[r.key for r in good],
+            codes=[(r.n, r.k) for r in good],
+            next_code=next_code,
+            storage_total_s=[r.total_s for r in good],
+            phase_ms=phase_ms,
+        )

@@ -13,6 +13,8 @@ import importlib, pkgutil, sys
 import repro_torch
 for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)
+import repro_torch.models, repro_torch.configs
+repro_torch.models.get("qwen1.5-0.5b").cfg.param_count_dense()
 import chip_smoke
 chip_smoke.request_class()
 chip_smoke.k1_bound(32, 64, 48, 524288)
@@ -23,6 +25,8 @@ bad = sorted(m for m in sys.modules
 print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
 print("SLICE", sorted(m for m in sys.modules
                      if m.startswith(("repro_torch.taskq", "repro_torch.sched"))))
+print("LM", sorted(m for m in sys.modules
+                  if m.startswith(("repro_torch.models", "repro_torch.configs"))))
 print("BAD", bad)
 """
 
@@ -33,10 +37,13 @@ def test_port_imports_no_jax_and_no_reference_package():
                          env=env, cwd=ROOT, timeout=240)
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
-    assert int(lines["LOADED"]) >= 44  # every module of the port was imported
+    assert int(lines["LOADED"]) >= 54  # every module of the port was imported
     assert lines["SLICE"] == str([f"repro_torch.{pkg}{mod}" for pkg, mods in (
         ("sched", ("", ".frontier", ".scan", ".sweep")),
         ("taskq", ("", ".engine", ".policies", ".sweep"))) for mod in mods])
+    assert lines["LM"] == str([f"repro_torch.{pkg}{mod}" for pkg, mods in (
+        ("configs", ("", ".gemma2_2b", ".mistral_nemo_12b", ".qwen1_5_0_5b", ".yi_6b")),
+        ("models", ("", ".config", ".layers", ".lm", ".registry"))) for mod in mods])
     assert lines["BAD"] == "[]", lines["BAD"]
 
 
