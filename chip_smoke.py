@@ -71,7 +71,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    classes × 6 rates × (FIFO, priority, WFQ), 3,000 arrivals, one chunk,
    with the Poisson-split fleet baseline; the interference headline is
    held, a one-class mix must equal the fluid scan bit for bit and a
-   streamed run the materialized one, and a 500-arrival chunk is profiled.
+   streamed run the materialized one, and a 500-arrival chunk is profiled;
+11. obs — the telemetry planes (``REPRO_OBS``) on the same paths: 4 more
+   closed-loop rounds (run inside phase 6, before its proxy closes) with
+   collection on, their tokens equal to ``ServingEngine.generate`` and to
+   the uncollected rounds', exact counters, every delay row summing to 32,
+   K1 launched in each, the SLO report and the ASCII dashboard printed; the
+   fleet, taskq and sched sweeps again with collection on, their outputs
+   equal to the uncollected runs' bit for bit, pick histograms and delay
+   histograms equal to host recounts, the buckets' disagreements with
+   float64 arithmetic printed; the worst taskq row replayed with the flight
+   recorder; ``profile_launch`` of K1 and of one fluid-scan case, every
+   ``frac_peak`` at or under 1.05; each path's wall with collection on and
+   off. Artifacts go to ``chiprun_out/obs/``.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``. Without a card it
@@ -91,8 +103,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-#: NVIDIA H100 SXM data-sheet peaks (dense): HBM bytes/s and int8 ops/s.
-HBM_BYTES_PER_S = 3.35e12
+#: NVIDIA H100 SXM data-sheet peak (dense) int8 ops/s; the HBM rate and the
+#: bfloat16 peak are ``repro_torch.obs.profile.HBM_BW`` and ``PEAK_FLOPS``.
 INT8_OPS_PER_S = 1.979e15
 
 #: The paper's §V-A deployment (tests/test_fused_serve.py, coding/layout.py).
@@ -130,12 +142,15 @@ def nvidia_smi_line() -> str:
 
 
 def k1_bound_parts(batch: int, m8: int, k8: int, B: int) -> tuple[float, float]:
-    """(bytes ms, operations ms) of one K1 call: each input byte read once and
-    each output byte written once over HBM, and the equivalent 0/1 int8
-    product's operations at the int8 peak."""
-    nbytes = batch * m8 * k8 + batch * (k8 // 8) * B + batch * (m8 // 8) * B
-    ops = 2.0 * batch * m8 * k8 * B
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+    """(bytes ms, operations ms) of one K1 call: its counts
+    (``gf2mm.k1_counts``: each input byte read once and each output byte
+    written once, the equivalent 0/1 int8 product's operations) over the
+    HBM rate and the int8 peak."""
+    from repro_torch.kernels.gf2mm.gf2mm import k1_counts
+    from repro_torch.obs.profile import HBM_BW
+
+    ops, nbytes = k1_counts(batch, m8, k8, B)
+    return nbytes / HBM_BW * 1e3, ops / INT8_OPS_PER_S * 1e3
 
 
 def k1_bound(batch: int, m8: int, k8: int, B: int) -> tuple[float, str]:
@@ -147,11 +162,14 @@ def k1_bound(batch: int, m8: int, k8: int, B: int) -> tuple[float, str]:
 
 def k2_bound(M: int, K: int, N: int) -> tuple[float, str]:
     """Least time (ms) the card needs for one K2 call and what bounds it:
-    each operand byte read once and each output byte written once over HBM,
-    vs the 0/1 int8 product's 2·M·K·N operations at the int8 peak."""
-    nbytes = M * K + K * N + M * N
-    ops = 2.0 * M * K * N
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    its counts (``gf2mm.k2_counts``: each operand byte read once and each
+    output byte written once, the 0/1 int8 product's 2·M·K·N operations)
+    over the HBM rate and the int8 peak."""
+    from repro_torch.kernels.gf2mm.gf2mm import k2_counts
+    from repro_torch.obs.profile import HBM_BW
+
+    ops, nbytes = k2_counts(M, K, N)
+    t_bytes, t_ops = nbytes / HBM_BW, ops / INT8_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -511,7 +529,7 @@ def run_fleet(device, *, count: int = FLEET_COUNT) -> dict:
     wall_s = time.monotonic() - t0
     want_chunks = -(-len(cases) // FLEET_CHUNK)
     rec = {"cases": len(cases), "count": count, "bucket_key": list(key), "wall_s": wall_s,
-           "chunks": res.launches, "bucket_uses": res.compiles}
+           "chunks": res.launches, "bucket_uses": res.compiles, "grid": cases, "res": res}
     print(f"[fleet] Fig. 7 grid: {len(cases)} cases x {count} arrivals, {res.launches} "
           f"chunks (one scan loop of {count} steps each; its device kernels are in the "
           f"[profile] line), {res.compiles} bucket use(s), key {key}, {wall_s:.3f} s wall "
@@ -717,7 +735,8 @@ def run_taskq(device, *, count: int = TASKQ_COUNT, fleet_tofec=None) -> dict:
     _sync(device)
     wall_s = time.monotonic() - t0
     rec = {"cases": len(cases), "count": count, "bucket_key": list(key), "wall_s": wall_s,
-           "chunks": res.launches, "bucket_uses": res.compiles}
+           "chunks": res.launches, "bucket_uses": res.compiles, "grid": cases, "res": res,
+           "pools": pools}
     print(f"[taskq] Fig. 7 Greedy + Fig. 9: {len(cases)} cases x {count} arrivals, pools "
           f"{tuple(pools.pools.shape)}, {res.launches} chunk(s), {res.compiles} bucket use(s), "
           f"key {key}, {wall_s:.3f} s wall ({wall_s / count * 1e3:.4f} ms per scan step)",
@@ -821,7 +840,7 @@ def run_sched(device, *, count: int = SCHED_COUNT) -> dict:
     _sync(device)
     wall_s = time.monotonic() - t0
     rec = {"cases": len(cases), "count": count, "wall_s": wall_s, "chunks": res.launches,
-           "bucket_uses": res.compiles}
+           "bucket_uses": res.compiles, "grid": cases, "res": res}
     print(f"[sched] multiclass figure: {len(cases)} cases x {count} arrivals, {res.launches} "
           f"chunk(s), {res.compiles} bucket use(s), {wall_s:.3f} s wall "
           f"({wall_s / count * 1e3:.4f} ms per scan step)", flush=True)
@@ -1049,7 +1068,7 @@ SERVE_PROMPT, SERVE_STEPS = 1024, 32
 def run_serve(device, *, smoke: bool = False, n_objects: int = SERVE_OBJECTS,
               rounds: int = SERVE_ROUNDS, per_round: int = SERVE_BATCH,
               prompt_len: int = SERVE_PROMPT, steps: int = SERVE_STEPS,
-              file_bytes: int = FILE_BYTES, seed: int = 0) -> dict:
+              file_bytes: int = FILE_BYTES, seed: int = 0, obs_rounds: int = 0) -> dict:
     """The closed loop through ``ClosedLoopServer`` at the proxy path's
     deployment, with ``SERVE_MODEL`` (its smoke config with ``smoke``) on
     seeded random weights.
@@ -1062,7 +1081,12 @@ def run_serve(device, *, smoke: bool = False, n_objects: int = SERVE_OBJECTS,
     host TOFEC policy's, the write policy from the pick, the rounds take more
     than one shape bucket, K1 is not launched in a round, or a write after
     the loop is not coded under the fed-back code and read back byte for
-    byte. On a card one more round runs under torch.profiler."""
+    byte. On a card one more round runs under torch.profiler. K1's launches
+    over all that are ``rec["k1_launches"]``.
+
+    ``obs_rounds`` more rounds then serve the first rounds' keys again with
+    telemetry collection on, through a server of their own (see
+    :func:`serve_collected`), under ``rec["obs"]``."""
     import torch
 
     from repro_torch.coding.codec import Codec
@@ -1119,14 +1143,15 @@ def run_serve(device, *, smoke: bool = False, n_objects: int = SERVE_OBJECTS,
         server = ClosedLoopServer(engine, proxy, layout, step, prompt_len=prompt_len)
         host = TOFECPolicy.for_classes([cls_], L_THREADS)
 
-        def serve(r: int, ids: list[int], around=contextlib.nullcontext()) -> dict:
-            """Round ``r`` over objects ``ids`` (the round alone inside
-            ``around``), checked."""
+        def serve(r: int, ids: list[int], around=contextlib.nullcontext(), srv=server,
+                  tag: str = "[serve]") -> dict:
+            """Round ``r`` of ``srv`` over objects ``ids`` (the round alone
+            inside ``around``), checked."""
             keys = [f"lm/{i}" for i in ids]
             k1_before = gf2_rs_matmul_bytes.launches
             with around:
                 t0 = time.monotonic()
-                res = server.serve_round(keys, steps=steps)
+                res = srv.serve_round(keys, steps=steps)
                 wall_ms = (time.monotonic() - t0) * 1e3
             k1 = gf2_rs_matmul_bytes.launches - k1_before
             if res.ok != [True] * len(keys) or res.served_keys != keys:
@@ -1149,12 +1174,13 @@ def run_serve(device, *, smoke: bool = False, n_objects: int = SERVE_OBJECTS,
                                      "positions")
             ph = res.phase_ms
             rnd = {"round": r, "wall_ms": wall_ms, **{f"{k}_ms": v for k, v in ph.items()},
-                   "generate_direct_ms": ref_ms, "k1_launches": k1,
+                   "generate_direct_ms": ref_ms, "k1_launches": k1, "tokens": res.tokens,
+                   "storage_total_s": res.storage_total_s,
                    "prompt_tok_per_s": len(keys) * prompt_len / (ph["launch"] / 1e3),
                    "gen_tok_per_s": len(keys) * steps / (ph["generate"] / 1e3),
                    "read_codes": sorted({tuple(c) for c in res.codes}),
                    "next_pick": list(res.next_code)}
-            print(f"[serve] round {r}: {wall_ms:.3f} ms wall; fetch {ph['fetch']:.3f} ms, fused "
+            print(f"{tag} round {r}: {wall_ms:.3f} ms wall; fetch {ph['fetch']:.3f} ms, fused "
                   f"launch (upload + admission + K1 + prefill) {ph['launch']:.3f} ms, generate "
                   f"{ph['generate']:.3f} ms; {rnd['prompt_tok_per_s']:.0f} prompt tok/s, "
                   f"{rnd['gen_tok_per_s']:.1f} generated tok/s; K1 launches {k1}; read codes "
@@ -1193,8 +1219,103 @@ def run_serve(device, *, smoke: bool = False, n_objects: int = SERVE_OBJECTS,
         if device.type == "cuda":
             rec["profile"] = profile_serve_round(serve, engine, prompts, list(range(per_round)),
                                                  rec["rounds"][1:], steps)
+        rec["k1_launches"] = gf2_rs_matmul_bytes.launches
+        if obs_rounds:
+            rec["obs"] = serve_collected(
+                serve, ClosedLoopServer(engine, proxy, layout, step, prompt_len=prompt_len),
+                rec["rounds"], obs_rounds, per_round)
     finally:
         proxy.close()
+    return rec
+
+
+#: Where the ``[obs]`` phase writes its artifacts (gitignored).
+OBS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out", "obs")
+#: The closed loop's delay objective for the ``[obs]`` SLO report: p99 of the
+#: proxy's read delays under 1 s, judged over 2 rounds.
+SERVE_SLO_S = 1.0
+
+
+def _f64_buckets(delays) -> np.ndarray:
+    """The delay buckets of float64 arithmetic: floor(log2(max(v, 2**-6)) · 8)
+    + 48, clipped to [0, 95] (the float32 buckets' exact-math reference)."""
+    from repro_torch import obs
+
+    v = np.maximum(np.asarray(delays, np.float64), 2.0 ** -6)
+    return np.clip(np.floor(np.log2(v) * 8).astype(np.int64) + 48, 0, obs.DELAY_BINS - 1)
+
+
+def serve_collected(serve, server, uncollected: list[dict], rounds: int, per_round: int) -> dict:
+    """``rounds`` more closed-loop rounds over the keys of the first
+    uncollected ones, with telemetry on, through ``server`` (a fresh one: its
+    bucket key carries the collect flag). Each round is checked as the
+    others (tokens = ``ServingEngine.generate``, pick = host, K1 launched)
+    and its tokens must equal the uncollected round's; then the counters
+    must be exact (rounds, requested = served, no errors), every timeline
+    delay row must sum to the round's batch and equal a host recount of the
+    round's delays, and the server must count one bucket. Prints the SLO
+    report and the ASCII dashboard; writes the metrics, SLO events,
+    dashboard, flight ring and spans under :data:`OBS_DIR`."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.kernels.gf2mm.gf2mm import gf2_rs_matmul_bytes
+
+    obs.reset_trace()
+    gf2_rs_matmul_bytes.launches = 0
+    obs.set_enabled(True)
+    try:
+        got = [serve(r, list(range(r * per_round, (r + 1) * per_round)), srv=server,
+                     tag="[obs] serve") for r in range(rounds)]
+    finally:
+        obs.set_enabled(None)
+    rec = {"k1_launches": gf2_rs_matmul_bytes.launches, "rounds": got}
+    for r, (a, b) in enumerate(zip(got, uncollected)):
+        if not np.array_equal(a["tokens"], b["tokens"]):
+            raise AssertionError(f"collected round {r}: tokens differ from the uncollected "
+                                 "round's")
+    snap = server.metrics.snapshot()
+    want = {"serve_rounds": rounds, "serve_requested": rounds * per_round,
+            "serve_served": rounds * per_round, "serve_decode_errors": 0}
+    tl = server.timeline.snapshot()
+    rows = tl["hists"]["delay"]
+    recount = np.stack([np.bincount(obs.delay_bucket(torch.tensor(g["storage_total_s"])).numpy(),
+                                    minlength=obs.DELAY_BINS) for g in got])
+    delays = np.concatenate([g["storage_total_s"] for g in got])
+    flips = int((obs.delay_bucket(torch.tensor(delays, dtype=torch.float32)).numpy()
+                 != _f64_buckets(np.float32(delays))).sum())
+    rec.update(counters=snap["counters"], hists=snap["hists"], highs=snap["highs"],
+               bucket_flips_vs_f64=flips, buckets=server.traces)
+    picks = [(i, c) for i, c in enumerate(snap["hists"]["serve_pick_n"]) if c]
+    print(f"[obs] serve counters {snap['counters']}, q_hi {snap['highs']['serve_q_hi']}; "
+          f"pick_n histogram nonzero {picks}; "
+          f"delay rows sum {rows.sum(axis=1).tolist()}; {server.traces} bucket; K1 launches "
+          f"{rec['k1_launches']} ({[g['k1_launches'] for g in got]} a round); {flips} of "
+          f"{delays.size} delays in another bucket than a float64 recount gives", flush=True)
+    if (snap["counters"] != want or (rows.sum(axis=1) != per_round).any()
+            or not np.array_equal(rows, recount) or server.traces != 1
+            or sum(snap["hists"]["serve_pick_n"]) != rounds):
+        raise AssertionError(f"collected closed loop: counters {snap['counters']} (want "
+                             f"{want}), delay rows {rows.sum(axis=1)}, buckets {server.traces}")
+    report = obs.slo_report(tl, obs.SLOSpec(target_s=SERVE_SLO_S, percentile=0.99, window=2),
+                            label="serve")
+    rec["slo"] = {k: report[k] for k in ("max_burn_rate", "breach_slots", "percentile_last_s",
+                                         "convergence")}
+    print(f"[obs] serve SLO p99 < {SERVE_SLO_S} s over 2 rounds: max burn "
+          f"{report['max_burn_rate']}, breach slots {report['breach_slots']}, last p99 "
+          f"{report['percentile_last_s']} s, convergence {report['convergence']}, events "
+          f"{[e['kind'] for e in report['events'].events]}", flush=True)
+    for line in obs.ascii_dashboard({"serve": tl}, slo=report).splitlines():
+        print(f"[obs] {line}", flush=True)
+    os.makedirs(OBS_DIR, exist_ok=True)
+    with open(os.path.join(OBS_DIR, "serve_metrics.prom"), "w") as f:
+        f.write(obs.to_prometheus(snap, labels={"engine": "serve"}))
+    report["events"].write(os.path.join(OBS_DIR, "serve_slo_events.ndjson"))
+    obs.html_report(os.path.join(OBS_DIR, "serve_dashboard.html"), {"serve": tl}, slo=report,
+                    meta={"device": torch.cuda.get_device_name(0)
+                          if torch.cuda.is_available() else "cpu"})
+    server.flight.write_trace(os.path.join(OBS_DIR, "serve_flight_trace.json"))
+    obs.write_trace(os.path.join(OBS_DIR, "serve_spans.json"))
     return rec
 
 
@@ -1294,6 +1415,178 @@ def profile_serve_round(serve, engine, prompts, ids: list[int], warm: list[dict]
     return rec
 
 
+def check_collected(tag: str, prefix: str, run, base, count: int, *, backlog: bool) -> dict:
+    """One sweep again with telemetry on (``run()``), held against its
+    uncollected result ``base``: outputs bit for bit, requests = G × count,
+    tasks and pick histograms = a host recount of the outputs, every
+    timeline row's served = count, its delay histogram = a host recount by
+    the port's buckets (the card's buckets must equal the CPU's), and the
+    backlog series present or absent. Then the uncollected run once more
+    (wall noise). Prints the buckets where float64 arithmetic disagrees."""
+    import torch
+
+    from repro_torch import obs
+
+    obs.set_enabled(True)
+    try:
+        t0 = time.monotonic()
+        res = run()
+        _sync(res.out["total"].device)
+        wall_on = time.monotonic() - t0
+    finally:
+        obs.set_enabled(None)
+    a, b = base.to_numpy(), res.to_numpy()
+    same = all(np.array_equal(a[k], b[k]) for k in a)
+    G = b["n"].shape[0]
+    snap, tl = res.metrics.snapshot(), res.timeline.snapshot()
+    c = snap["counters"]
+    dev_buckets = obs.delay_bucket(res.out["total"]).cpu().numpy()
+    cpu_buckets = obs.delay_bucket(torch.from_numpy(b["total"])).numpy()
+    window, S = tl["window"], tl["capacity"]
+    slot = np.arange(count) // window
+    recount = np.zeros((G, S, obs.DELAY_BINS), np.int64)
+    np.add.at(recount, (np.arange(G)[:, None], slot[None, :], cpu_buckets), 1)
+    flips = int((cpu_buckets != _f64_buckets(b["total"])).sum())
+    checks = {
+        "outputs_bit_identical": same,
+        "requests": c[f"{prefix}_requests"] == G * count,
+        "tasks": c[f"{prefix}_tasks"] == int(b["n"].astype(np.int64).sum()),
+        "pick_n": snap["hists"][f"{prefix}_pick_n"] == np.bincount(
+            b["n"].ravel(), minlength=obs.PICK_BINS).tolist(),
+        "pick_k": snap["hists"][f"{prefix}_pick_k"] == np.bincount(
+            b["k"].ravel(), minlength=obs.PICK_BINS).tolist(),
+        "served": bool((tl["series"]["served"].sum(axis=1) == count).all()),
+        "delay_hist": np.array_equal(tl["hists"]["delay"], recount),
+        "card_buckets_eq_cpu": np.array_equal(dev_buckets, cpu_buckets),
+        "backlog_series": ("backlog" in tl["series"]) == backlog,
+    }
+    t0 = time.monotonic()
+    run()
+    _sync(res.out["total"].device)
+    wall_off2 = time.monotonic() - t0
+    rec = {"wall_on_s": wall_on, "wall_off2_s": wall_off2, "counters": c, "checks": checks,
+           "bucket_flips_vs_f64": flips, "slots": [window, S], "result": res}
+    print(f"[obs] {tag}: collected {wall_on:.3f} s wall, uncollected again {wall_off2:.3f} s; "
+          f"counters {c}; timeline {G} x {S} slots of {window}; {flips} of {b['total'].size} "
+          f"delays in another bucket than a float64 recount gives; checks {checks}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} collection: {checks}")
+    return rec
+
+
+def run_obs_sweeps(device, fleet: dict, taskq: dict, sched: dict) -> dict:
+    """The ``[obs]`` phase's sweeps: Fig. 7's fleet grid, the taskq grid and
+    the multiclass grid again with telemetry on (:func:`check_collected`),
+    the exact engine's cancellation split and idle histogram held (and on a
+    card a collected 500-arrival taskq chunk profiled), and the
+    taskq row with the worst mean delay replayed with the flight recorder
+    (its delays equal to the sweep cell's); writes the flight records,
+    trace and the taskq artifact with its flight block under
+    :data:`OBS_DIR`."""
+    from repro_torch import obs
+    from repro_torch.fleet import FleetSweep
+    from repro_torch.sched import SchedSweep
+    from repro_torch.taskq import TaskqSweep, write_taskq_artifact
+
+    rec = {"fleet": check_collected(
+        "fleet Fig. 7", "fleet",
+        lambda: FleetSweep(chunk=FLEET_CHUNK, device=device).run(fleet["grid"], fleet["count"]),
+        fleet["res"], fleet["count"], backlog=True)}
+    pools = taskq["pools"]
+    tq = TaskqSweep(chunk=TASKQ_CHUNK, device=device)
+    rec["taskq"] = check_collected(
+        "taskq Fig. 7 Greedy + Fig. 9", "taskq",
+        lambda: tq.run(taskq["grid"], taskq["count"], pools), taskq["res"], taskq["count"],
+        backlog=True)
+    c = rec["taskq"]["counters"]
+    idle = rec["taskq"]["result"].metrics.snapshot()["hists"]["taskq_idle"]
+    G, count = taskq["cases"], taskq["count"]
+    print(f"[obs] taskq cancellations {c['taskq_cancelled']} = queued "
+          f"{c['taskq_cancel_queue']} + in service {c['taskq_cancel_service']}; idle histogram "
+          f"({len(idle)} bins) sums to {sum(idle)} = {G} x {count}", flush=True)
+    if (c["taskq_cancelled"] != c["taskq_cancel_queue"] + c["taskq_cancel_service"]
+            or sum(idle) != G * count or len(idle) != L_THREADS + 1):
+        raise AssertionError(f"taskq cancellation split or idle histogram: {c}, {sum(idle)}")
+    if device.type == "cuda":  # device kernels a step with collection on (off: [profile])
+        obs.set_enabled(True)
+        try:
+            rec["taskq"]["profile"] = profile_chunk(
+                "taskq collected", lambda: tq.run(taskq["grid"], PROFILE_COUNT, pools),
+                G, PROFILE_COUNT)
+        finally:
+            obs.set_enabled(None)
+    rec["sched"] = check_collected(
+        "sched multiclass", "sched",
+        lambda: SchedSweep(chunk=SCHED_CHUNK, device=device).run(sched["grid"], sched["count"]),
+        sched["res"], sched["count"], backlog=False)
+
+    out = taskq["res"].to_numpy()
+    worst = int(np.argmax(out["total"].mean(axis=1)))
+    t0 = time.monotonic()
+    log = tq.replay_flight(taskq["res"], pools, worst)
+    replay_s = time.monotonic() - t0
+    np.testing.assert_allclose(log.total, out["total"][worst], rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(log.n, out["n"][worst])
+    ex = log.exemplars(3)
+    os.makedirs(OBS_DIR, exist_ok=True)
+    log.write_ndjson(os.path.join(OBS_DIR, "taskq_flight.ndjson"))
+    log.write_trace(os.path.join(OBS_DIR, "taskq_flight_trace.json"))
+    art = write_taskq_artifact(os.path.join(OBS_DIR, "BENCH_taskq.json"), taskq["res"],
+                               flight=log)
+    rec["flight"] = {"row": worst, "replay_s": replay_s, **art["flight"]}
+    print(f"[obs] flight replay of taskq row {worst} ({log.label}, the worst mean delay): "
+          f"{replay_s:.3f} s, {len(log)} requests, {art['flight']['records']} task records, "
+          f"delays equal to the sweep cell's; slowest requests {art['flight']['exemplar_reqs']}",
+          flush=True)
+    for line in obs.exemplar_panel(ex, width=60).splitlines():
+        print(f"[obs]   {line}", flush=True)
+    return rec
+
+
+def run_obs_profile(device, fleet: dict, *, strip_bytes: int = FILE_BYTES // K_MAX) -> dict:
+    """``profile_launch`` of K1 at the decode shape (its operations against
+    the int8 peak) and of one fluid-scan case (the Fig. 7 grid's TOFEC row
+    at its highest rate, 3,500 arrivals); prints ``format_profile`` and
+    holds every ``frac_peak`` at or under 1.05."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core.fluid_scan import FluidScanParams, tofec_scan_core
+    from repro_torch.fleet import policy_tables
+    from repro_torch.kernels.gf2mm.gf2mm import gf2_rs_matmul_bytes
+
+    obs.reset_profiles()
+    gen = torch.Generator(device=device).manual_seed(3)
+    bitmats = torch.randint(0, 2, (32, 64, 8 * K_MAX), dtype=torch.uint8, device=device,
+                            generator=gen)
+    data = torch.randint(0, 256, (32, K_MAX, strip_bytes), dtype=torch.uint8, device=device,
+                         generator=gen)
+    obs.profile_launch("k1.decode", gf2_rs_matmul_bytes, bitmats, data, warmup=2, iters=10,
+                       peak_flops=INT8_OPS_PER_S)
+    case = max((c for c in fleet["grid"] if c.policy.kind == "tofec"), key=lambda c: c.lam)
+    inter, exps = case.resolved_workload().device_arrays(np.random.default_rng(case.seed),
+                                                         fleet["count"], case.cls.n_max)
+    p = FluidScanParams.from_class(case.cls, case.L, case.policy.alpha).rows(1, device)
+    h_k, h_n, r_max = policy_tables(case.policy, case.cls, case.L)
+
+    def up(a):
+        return torch.as_tensor(np.asarray(a, np.float32))[None].to(device)
+
+    obs.profile_launch("fluid_scan.case", tofec_scan_core, p, up(h_k), up(h_n),
+                       up(np.float32(r_max)), up(inter), up(exps), n_max=case.cls.n_max,
+                       warmup=0, iters=2)
+    snap = obs.profile_snapshot()
+    print(f"[obs] profile (K1 at (32, 64, 48) x (32, 6, {strip_bytes:,}), operations against the "
+          f"int8 peak; fluid scan: the TOFEC row at λ={case.lam:.2f}, {fleet['count']} "
+          "arrivals)", flush=True)
+    for line in obs.format_profile(snap).splitlines():
+        print(f"[obs]   {line}", flush=True)
+    bad = {k: r["frac_peak"] for k, r in snap.items() if not r["frac_peak"] <= 1.05}
+    if bad:
+        raise AssertionError(f"frac_peak above 1.05: {bad}")
+    return snap
+
+
 def main() -> int:
     import torch
 
@@ -1341,19 +1634,38 @@ def main() -> int:
         raise AssertionError("K2 was not launched on its path")
 
     gf2mm.gf2_rs_matmul_bytes.launches = 0
-    serve = run_serve(device)
-    serve_launches = gf2mm.gf2_rs_matmul_bytes.launches
+    serve = run_serve(device, obs_rounds=SERVE_ROUNDS)
+    serve_launches = serve["k1_launches"]
     print(f"[serve] K1 launches in the phase: {serve_launches} (per round "
           f"{[r['k1_launches'] for r in serve['rounds']]}, the rest the proxy's write and read "
           "codec calls and the profiled round)", flush=True)
     if serve_launches < SERVE_ROUNDS:
         raise AssertionError(f"K1 launched {serve_launches} times in {SERVE_ROUNDS} rounds")
+    obs_launches = serve["obs"]["k1_launches"]
+    print(f"[obs] K1 launches in the {SERVE_ROUNDS} collected rounds: {obs_launches} (per "
+          f"round {[r['k1_launches'] for r in serve['obs']['rounds']]})", flush=True)
+    if obs_launches < SERVE_ROUNDS:
+        raise AssertionError(f"K1 launched {obs_launches} times in {SERVE_ROUNDS} collected "
+                             "rounds")
     torch.cuda.empty_cache()
 
     fleet = run_fleet(device)
-    run_taskq(device, fleet_tofec=fleet["tofec_points"])
+    taskq = run_taskq(device, fleet_tofec=fleet["tofec_points"])
     run_mpc()
-    run_sched(device)
+    sched = run_sched(device)
+    swept = run_obs_sweeps(device, fleet, taskq, sched)
+    run_obs_profile(device, fleet)
+    parts = []
+    for ph in ("wall_ms", "launch_ms"):  # collection runs in the launch phase
+        off, on = (float(np.mean([r[ph] for r in rounds[1:]]))
+                   for rounds in (serve["rounds"], serve["obs"]["rounds"]))
+        parts.append(f"closed loop {ph[:-3]}, warm rounds 1-{SERVE_ROUNDS - 1}: off {off:.3f} "
+                     f"ms, on {on:.3f} ms ({on / off - 1:+.2%})")
+    for name, rec in (("fleet", fleet), ("taskq", taskq), ("sched", sched)):
+        off, on, off2 = rec["wall_s"], swept[name]["wall_on_s"], swept[name]["wall_off2_s"]
+        parts.append(f"{name} off {off:.3f} s, on {on:.3f} s, off again {off2:.3f} s "
+                     f"({on / ((off + off2) / 2) - 1:+.2%} against the offs' mean)")
+    print(f"[obs] collection's wall cost ({smi}): " + "; ".join(parts), flush=True)
 
     kernels = {"kernels": [{
         "name": "gf2_rs_matmul_bytes",
@@ -1361,7 +1673,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/gf2mm/csrc/gf2_rs_bytes.cu",
         "replaces": "src/repro/kernels/gf2mm/gf2mm.py:154",
         "launches": launches,
-        "launches_by_path": {"main": launches, "serve": serve_launches},
+        "launches_by_path": {"main": launches, "serve": serve_launches, "obs": obs_launches},
         "byte_equal": k1["byte_equal"],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],

@@ -110,11 +110,13 @@ class _Backend:
         )
 
     def note_bucket(self, key: tuple) -> None:
-        """Count the first use of a shape bucket in ``stats.traces``."""
+        """Count the first use of a shape bucket in ``stats.traces`` (a
+        ``codec.build`` span marks it)."""
         with self._lock:
             if key not in self._seen:
-                self._seen.add(key)
-                self.stats.traces += 1
+                with obs.span("codec.build", backend=self.name, bucket=str(key)):
+                    self._seen.add(key)
+                    self.stats.traces += 1
 
 
 class NumpyBackend(_Backend):

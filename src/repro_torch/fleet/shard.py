@@ -12,6 +12,13 @@ carried statistics. The fold runs the *same* reduction the materialized
 frontier uses, over blocks of the same row count, so the streamed
 statistics are bit-exact equals of the materialized ones.
 
+The telemetry side-channels ride the streamed path unchanged: per-case
+:class:`repro_torch.obs.MetricsBuf` rows fold per chunk (cut → row-reduce →
+merge) and per-case :class:`repro_torch.obs.TimelineBuf` timelines keep
+their case axis (cut → concat), in the same chunk loop
+(``ChunkedSweep._launch_chunks``) as the materialized path, so both carry
+the same metrics and timelines bit for bit.
+
 **Grid sharding** across several cards (``shard_grid`` in the reference) is
 not ported yet (``ROADMAP.md`` item 12): :func:`resolve_grid_mesh` accepts
 only the single-device path.

@@ -42,21 +42,17 @@ from repro_torch import obs, resolve_device
 from repro_torch.coding.codec import pow2_bucket
 from repro_torch.core.controller import BIG, FixedKAdaptivePolicy
 from repro_torch.core.delay_model import RequestClass
-from repro_torch.core.fluid_scan import PARAM_FIELDS, FluidScanParams, tofec_scan_core
+from repro_torch.core.fluid_scan import (
+    PARAM_FIELDS,
+    FluidScanParams,
+    backlog_proxy,
+    tofec_scan_core,
+)
 from repro_torch.core.static_optimizer import ClassPlan, build_class_plan
 from repro_torch.fleet.shard import StreamedStats, resolve_grid_mesh, resolve_stream
 from repro_torch.fleet.stats import class_params, convergence_reduce, frontier_block_reduce
 from repro_torch.fleet.workloads import PoissonWorkload, TenantMix, Workload
-
-#: Timeline slots per run (the reference's ``repro.obs.TIMELINE_SLOTS``); the
-#: bucket key's last entry is the window ``max(T_bucket // 64, 1)``.
-TIMELINE_SLOTS = 64
-
-
-def timeline_window(t_bucket: int) -> int:
-    """Window size (arrivals per timeline slot) for a pow2 time bucket."""
-    return max(int(t_bucket) // TIMELINE_SLOTS, 1)
-
+from repro_torch.obs.timeline import timeline_window
 
 # ---------------------------------------------------------------------------
 # Policies as threshold tables
@@ -261,6 +257,8 @@ class ChunkedSweep:
         self.stats = obs.CompileStats(label=f"sweep.{type(self).__name__}")
         self._fns: dict[tuple, object] = {}
         self._plans: dict[tuple, ClassPlan] = {}
+        self._last_metrics = None  # MetricsBuf of the most recent run, if collected
+        self._last_timeline = None  # per-case TimelineBuf of the most recent run
 
     @property
     def mesh_shape(self) -> tuple:
@@ -272,17 +270,23 @@ class ChunkedSweep:
         ``chunk``."""
         return min(pow2_bucket(n_cases), self.chunk)
 
-    def _build(self, key: tuple):
+    def _build(self, key: tuple, collect: bool = False):
         raise NotImplementedError
 
-    def _fn_for(self, key: tuple):
-        """The launch body of a bucket; its first use counts in ``traces``."""
-        fn = self._fns.get(key)
+    def _fn_for(self, key: tuple, collect: bool = False):
+        """The launch body of a bucket; its first use counts in ``traces``.
+
+        ``collect`` (telemetry on/off) is part of the key, as in the
+        reference: a constant ``REPRO_OBS`` setting keeps the pinned bucket
+        counts, and flipping it mid-process is a new bucket."""
+        fn = self._fns.get((key, collect))
         if fn is None:
             by_mesh = self.stats.by_mesh
             self.stats.traces += 1
             by_mesh[self.mesh_shape] = by_mesh.get(self.mesh_shape, 0) + 1
-            fn = self._fns[key] = self._build(key)
+            with obs.span("sweep.trace", engine=type(self).__name__,
+                          mesh=str(self.mesh_shape)):
+                fn = self._fns[(key, collect)] = self._build(key, collect)
         return fn
 
     def _plan_for(self, cls: RequestClass, L: int, eq7_factor: float) -> ClassPlan:
@@ -311,8 +315,16 @@ class ChunkedSweep:
         grid index of its first row, it returns fixed-size per-row
         statistics which are stacked *instead of* the raw block, so a
         streamed sweep never materializes O(G × T).
+
+        A collecting launch body adds ``"obs"`` (a per-case
+        :class:`repro_torch.obs.MetricsBuf`) and ``"timeline"`` (a per-case
+        :class:`repro_torch.obs.TimelineBuf`) to its outputs; both are
+        folded per chunk on the device — metrics cut to the real rows,
+        row-reduced and merged, timelines cut and concatenated — and left in
+        ``_last_metrics`` / ``_last_timeline``, on both paths.
         """
         outs = []
+        mbuf = tlbuf = None
         engine = type(self).__name__
         dev = self.device
         idx = np.empty(chunk, np.intp)  # preallocated chunk-gather indices
@@ -329,6 +341,13 @@ class ChunkedSweep:
                              *(torch.from_numpy(s).to(dev) for s in streams_np), *broadcast,
                              count)
                 self.stats.launches += 1
+                mb, tl = out.pop("obs", None), out.pop("timeline", None)
+                if mb is not None:
+                    mb = mb.reduce_rows(hi - lo)
+                    mbuf = mb if mbuf is None else mbuf.merge(mb)
+                if tl is not None:
+                    tl = tl.reduce_rows(hi - lo)
+                    tlbuf = tl if tlbuf is None else tlbuf.concat(tl)
                 if fold is None:
                     outs.append({name: v[: hi - lo] for name, v in out.items()})
                 else:
@@ -337,6 +356,7 @@ class ChunkedSweep:
                     outs.append({name: v[: hi - lo] for name, v in red.items()})
                 del out
         self.stats.cases += G
+        self._last_metrics, self._last_timeline = mbuf, tlbuf
         return {name: torch.cat([o[name] for o in outs]) for name in outs[0]}
 
 
@@ -381,6 +401,8 @@ class SweepResult:
     compiles: int  # bucket first uses in this run (the reference's jit traces)
     launches: int
     streamed: object = None  # StreamedStats for streamed runs
+    metrics: object = None  # MetricsBuf folded across chunks (REPRO_OBS=1)
+    timeline: object = None  # per-case TimelineBuf, (G, S) slots (REPRO_OBS=1)
     mesh_shape: tuple = ()
 
     def to_numpy(self) -> dict[str, np.ndarray]:
@@ -409,13 +431,21 @@ class FleetSweep(ChunkedSweep):
             timeline_window(t_b),
         )
 
-    def _build(self, key: tuple):
-        n_max = key[2]
+    def _build(self, key: tuple, collect: bool = False):
+        t_b, n_max, window = key[1], key[2], key[-1]
 
         def launch(cfg, inter, exps, count):
             p = types.SimpleNamespace(**{f: cfg[f] for f in PARAM_FIELDS})
-            return tofec_scan_core(p, cfg["h_k"], cfg["h_n"], cfg["r_max"], inter, exps,
-                                   n_max=n_max)
+            out = tofec_scan_core(p, cfg["h_k"], cfg["h_n"], cfg["r_max"], inter, exps,
+                                  n_max=n_max)
+            if collect:
+                valid = obs.valid_mask(cfg, count)
+                rows = types.SimpleNamespace(**{f: v[:, None] for f, v in vars(p).items()})
+                out["obs"] = obs.sweep_point_metrics(out, "fleet", valid=valid)
+                out["timeline"] = obs.sweep_timeline(
+                    out, inter, window=window, valid=valid, horizon=t_b,
+                    backlog=backlog_proxy(rows, out["queueing"]))
+            return out
 
         return launch
 
@@ -453,17 +483,13 @@ class FleetSweep(ChunkedSweep):
         folds each chunk into running frontier statistics instead of
         stacking the raw (G, count) block.
 
-        The device telemetry planes (``REPRO_OBS=1``: per-case metrics and
-        timelines) are not ported yet (``ROADMAP.md`` item 11), so a run
-        with telemetry on raises instead of running without what was asked.
+        With ``REPRO_OBS`` on, the result also carries ``metrics`` (request,
+        task and pick counts, the worst delay) and ``timeline`` (per-case
+        windowed series and delay histograms); the primary outputs are the
+        same bit for bit.
         """
         if not cases:
             raise ValueError("empty case grid")
-        if obs.enabled():
-            raise RuntimeError(
-                "REPRO_OBS is on, but the sweep's device telemetry planes (metrics and "
-                "timelines) are not ported yet (ROADMAP.md item 11); unset REPRO_OBS "
-                "to run the sweep")
         spec = resolve_stream(stream)
         traces0, launches0 = self.stats.traces, self.stats.launches
         n_max = max(c.cls.n_max for c in cases)
@@ -472,6 +498,10 @@ class FleetSweep(ChunkedSweep):
         key = self.bucket_key(len(cases), count, n_max, hk_len, hn_len)
         chunk = key[0]
         cfg = self._stack_cfg(cases, hk_len, hn_len)
+        collect = obs.enabled()
+        if collect:
+            # Runtime row, not a bucket-key entry: the real arrival count.
+            cfg["obs_count"] = np.full(len(cases), count, np.int32)
 
         # The reference pads the time axis to the bucket's T with zero gaps
         # and slices their outputs off; the scan is causal, so here the
@@ -493,7 +523,7 @@ class FleetSweep(ChunkedSweep):
                 exps[j, :, : case.cls.n_max] = ex
             return inter, exps
 
-        fn = self._fn_for(key)
+        fn = self._fn_for(key, collect)
         fold = frontier_fold(int(count * spec.warmup_frac), hn_len) if spec else None
         stacked = self._launch_chunks(fn, cfg, chunk_streams, len(cases), chunk, count,
                                       fold=fold)
@@ -505,5 +535,7 @@ class FleetSweep(ChunkedSweep):
             compiles=self.stats.traces - traces0,
             launches=self.stats.launches - launches0,
             streamed=StreamedStats(spec.warmup_frac, count, stacked) if spec else None,
+            metrics=self._last_metrics,
+            timeline=self._last_timeline,
             mesh_shape=self.mesh_shape,
         )

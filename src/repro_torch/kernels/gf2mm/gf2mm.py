@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.gf2mm.ref import gf2_matmul_ref, gf2_rs_matmul_bytes_ref
+from repro_torch.obs import profile
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -81,6 +82,22 @@ def _launch_on(device: torch.device, name: str, *args) -> None:
             _launch(name, *args)
 
 
+def k1_counts(batch: int, m8: int, k8: int, B: int) -> tuple[float, int]:
+    """(operations, bytes) of one K1 call on (batch, m8, k8) bit-matrices and
+    (batch, k8 / 8, B) strips: the equivalent 0/1 int8 product's
+    2·batch·m8·k8·B operations, and each input byte read once and each
+    output byte written once."""
+    nbytes = batch * m8 * k8 + batch * (k8 // 8) * B + batch * (m8 // 8) * B
+    return 2.0 * batch * m8 * k8 * B, nbytes
+
+
+def k2_counts(M: int, K: int, N: int) -> tuple[float, int]:
+    """(operations, bytes) of one K2 call (M, K) @ (K, N): the 0/1 int8
+    product's 2·M·K·N operations, each operand byte read once and each
+    output byte written once."""
+    return 2.0 * M * K * N, M * K + K * N + M * N
+
+
 def _check(bitmats: torch.Tensor, data: torch.Tensor) -> None:
     for name, x in (("bitmats", bitmats), ("data", data)):
         if not isinstance(x, torch.Tensor):
@@ -112,7 +129,8 @@ def gf2_rs_matmul_bytes(bitmats: torch.Tensor, data: torch.Tensor) -> torch.Tens
     Returns  (batch, m, B) uint8, the GF(256) product rows.
 
     Both tensors must be contiguous and on one device. ``launches`` counts
-    kernel launches (CPU calls do not count).
+    kernel launches (CPU calls do not count); each launch reports
+    :func:`k1_counts` to :func:`repro_torch.obs.profile_launch`.
 
     The kernel (``csrc/gf2_rs_bytes.cu``) replaces the reference's TPU kernel
     ``repro/kernels/gf2mm/gf2mm.py::gf2_rs_matmul_bytes`` (:154, body
@@ -139,6 +157,7 @@ def gf2_rs_matmul_bytes(bitmats: torch.Tensor, data: torch.Tensor) -> torch.Tens
                batch, M8, k, B)
     with _COUNT_LOCK:
         gf2_rs_matmul_bytes.launches += 1
+    profile.add_counts(*k1_counts(batch, M8, 8 * k, B))
     return out
 
 
@@ -170,7 +189,8 @@ def gf2_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=torch.uint8) -> to
     here: the kernel picks its own tiles and masks its own ragged edges
     (byte-wise paths where K or N is not a multiple of 16 or a pointer is
     not 16-byte aligned; nothing padded in device memory).
-    ``launches`` counts kernel launches (CPU calls do not count).
+    ``launches`` counts kernel launches (CPU calls do not count); each
+    launch reports :func:`k2_counts` to :func:`repro_torch.obs.profile_launch`.
     """
     for name, x in (("a", a), ("b", b)):
         if not isinstance(x, torch.Tensor):
@@ -196,6 +216,7 @@ def gf2_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=torch.uint8) -> to
     _launch_on(a.device, "gf2_matmul", a8.data_ptr(), b8.data_ptr(), out.data_ptr(), M, K, N)
     with _COUNT_LOCK:
         gf2_matmul.launches += 1
+    profile.add_counts(*k2_counts(M, K, N))
     return out if out_dtype == torch.uint8 else out.to(out_dtype)
 
 

@@ -26,8 +26,9 @@ def write_trace_doc(path: str, events: list) -> str:
     """Serialize a Chrome ``trace_event`` list as a loadable trace document.
 
     The writer behind :meth:`Tracer.write_trace` (wallclock spans), kept
-    separate so the simulated-clock flight recorder (not ported yet) can
-    share it: a ``{"traceEvents": [...]}`` JSON envelope that Perfetto /
+    separate so the simulated-clock flight recorder
+    (:mod:`repro_torch.obs.flight`) can share it: a
+    ``{"traceEvents": [...]}`` JSON envelope that Perfetto /
     ``chrome://tracing`` load directly. Returns the path."""
     doc = {"traceEvents": list(events), "displayTimeUnit": "ms"}
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

@@ -27,7 +27,7 @@ import torch
 from repro_torch import obs
 from repro_torch.coding.codec import pow2_bucket
 from repro_torch.fleet.shard import StreamedStats, resolve_stream
-from repro_torch.fleet.sweep import ChunkedSweep, PolicySpec, policy_tables, timeline_window
+from repro_torch.fleet.sweep import ChunkedSweep, PolicySpec, policy_tables
 from repro_torch.fleet.workloads import TenantMix
 from repro_torch.sched.frontier import _reduce_multiclass
 from repro_torch.sched.scan import (
@@ -170,6 +170,8 @@ class SchedResult:
     compiles: int  # bucket first uses in this run (the reference's jit traces)
     launches: int
     streamed: object = None  # StreamedStats for streamed runs
+    metrics: object = None  # MetricsBuf folded across chunks (REPRO_OBS=1)
+    timeline: object = None  # per-case TimelineBuf, (G, S) slots (REPRO_OBS=1)
     mesh_shape: tuple = ()
 
     def to_numpy(self) -> dict[str, np.ndarray]:
@@ -204,16 +206,24 @@ class SchedSweep(ChunkedSweep):
             hk_len,
             hn_len,
             self.mesh_shape,
-            timeline_window(t_b),
+            obs.timeline_window(t_b),
         )
 
-    def _build(self, key: tuple):
-        n_max = key[3]
+    def _build(self, key: tuple, collect: bool = False):
+        t_b, n_max, window = key[1], key[3], key[-1]
 
         def launch(cfg, inter, cls_ids, exps, count):
             p = types.SimpleNamespace(L=cfg["L"], **{f: cfg[f] for f in CLASS_FIELDS})
-            return multiclass_scan_core(p, cfg["h_k"], cfg["h_n"], cfg["disc"], cfg["prio"],
-                                        cfg["wfq_w"], inter, cls_ids, exps, n_max=n_max)
+            out = multiclass_scan_core(p, cfg["h_k"], cfg["h_n"], cfg["disc"], cfg["prio"],
+                                       cfg["wfq_w"], inter, cls_ids, exps, n_max=n_max)
+            if collect:
+                valid = obs.valid_mask(cfg, count)
+                out["obs"] = obs.sweep_point_metrics(out, "sched", valid=valid)
+                # The joint scan has no single-queue backlog (the pool is
+                # shared across classes): rate, pick and delay series only.
+                out["timeline"] = obs.sweep_timeline(out, inter, window=window, valid=valid,
+                                                     horizon=t_b)
+            return out
 
         return launch
 
@@ -268,15 +278,11 @@ class SchedSweep(ChunkedSweep):
         folds each chunk into the per-class frontier statistics instead of
         stacking the (G, count) block.
 
-        With ``REPRO_OBS`` on the run raises: the device telemetry planes
-        are not ported yet (``ROADMAP.md`` item 11).
+        With ``REPRO_OBS`` on, the result also carries ``metrics`` and
+        ``timeline``; the primary outputs are the same bit for bit.
         """
         if not cases:
             raise ValueError("empty case grid")
-        if obs.enabled():
-            raise RuntimeError(
-                "REPRO_OBS is on, but the sweep's device telemetry planes are not ported "
-                "yet (ROADMAP.md item 11); unset REPRO_OBS to run the sweep")
         spec = resolve_stream(stream)
         traces0, launches0 = self.stats.traces, self.stats.launches
         C = max(len(case.mix.classes) for case in cases)
@@ -287,6 +293,9 @@ class SchedSweep(ChunkedSweep):
         chunk = key[0]
         cfg = self._stack_cfg(cases, C, hk_len, hn_len)
         G = len(cases)
+        collect = obs.enabled()
+        if collect:
+            cfg["obs_count"] = np.full(G, count, np.int32)
         # Materialized runs keep the class-id streams for the per-class
         # reductions; streamed runs fold them per chunk and never stack them.
         ids_full = None if spec else np.zeros((G, count), np.int32)
@@ -310,7 +319,7 @@ class SchedSweep(ChunkedSweep):
                     ids_full[i] = ids[j]
             return inter, ids, exps
 
-        fn = self._fn_for(key)
+        fn = self._fn_for(key, collect)
         fold = multiclass_fold(int(count * spec.warmup_frac), C) if spec else None
         stacked = self._launch_chunks(fn, cfg, chunk_streams, G, chunk, count, fold=fold)
         if not spec:
@@ -323,5 +332,7 @@ class SchedSweep(ChunkedSweep):
             compiles=self.stats.traces - traces0,
             launches=self.stats.launches - launches0,
             streamed=StreamedStats(spec.warmup_frac, count, stacked) if spec else None,
+            metrics=self._last_metrics,
+            timeline=self._last_timeline,
             mesh_shape=self.mesh_shape,
         )

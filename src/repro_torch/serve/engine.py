@@ -582,10 +582,19 @@ class ClosedLoopServer(_BucketStats):
     Batch varies within pow2 buckets; prefill and decode run at the padded
     batch and rows are cut to the served subset at the end.
 
-    The device telemetry of the reference's server (``metrics``,
-    ``timeline``, ``flight``) is not ported yet (ROADMAP item 11): the
-    properties return None, and a round with ``REPRO_OBS`` on raises.
+    With ``REPRO_OBS`` on, each round also updates the device telemetry
+    (:attr:`metrics`, :attr:`timeline`) and the host :attr:`flight` ring,
+    with no host sync; the round's tokens and pick are the same either way.
+    Telemetry collection is the last field of the bucket key.
     """
+
+    #: fixed bucket counts for the round histograms (values clip into the
+    #: last bucket); one buffer shape per server.
+    _Q_BINS = 64
+
+    #: Timeline ring capacity: the last _TL_CAP rounds stay resident; older
+    #: slots are overwritten in ring order (snapshot restores oldest-first).
+    _TL_CAP = 256
 
     def __init__(self, engine: ServingEngine, proxy: Proxy, layout: SharedKeyLayout,
                  step: FusedServingStep, *, prompt_len: int):
@@ -606,40 +615,89 @@ class ClosedLoopServer(_BucketStats):
         self.write_policy = pol if isinstance(pol, FeedbackPolicy) else None
         super().__init__("serve.ClosedLoopServer")
         self._last_now: float | None = None
+        self._mbuf = None  # device MetricsBuf, created on the first collected round
+        self._tlbuf = None  # device TimelineBuf ring, same lifecycle as _mbuf
+        self._flight = None  # host FlightRing, same lifecycle as _mbuf
 
     @property
     def metrics(self):
-        """The reference's device ``MetricsBuf``: not ported yet (ROADMAP
-        item 11), so None."""
-        return None
+        """The device :class:`repro_torch.obs.MetricsBuf` accumulated across
+        collected rounds — round, request, served and decode-error counters,
+        q / batch / pick histograms, the backlog high-water mark (None until
+        a round runs with REPRO_OBS=1). ``.snapshot()`` is the host sync."""
+        return self._mbuf
 
     @property
     def timeline(self):
-        """The reference's device ``TimelineBuf``: not ported yet (ROADMAP
-        item 11), so None."""
-        return None
+        """The device :class:`repro_torch.obs.TimelineBuf` ring of per-round
+        samples — arrival rate ``lam``, ``backlog`` signal, the controller's
+        ``pick_n``/``pick_k``, ``served`` count and the round's ``delay``
+        histogram delta. None until a round runs with REPRO_OBS=1; the last
+        :data:`_TL_CAP` rounds are retained. ``.snapshot()`` is the host
+        sync."""
+        return self._tlbuf
 
     @property
     def flight(self):
-        """The reference's per-round ``FlightRing``: not ported yet (ROADMAP
-        item 11), so None."""
-        return None
+        """The host :class:`repro_torch.obs.FlightRing` of per-round phase
+        breakdowns (admit → decode → generate on the compacted round clock).
+        None until a round runs with REPRO_OBS=1; the last :data:`_TL_CAP`
+        rounds are retained, matching the timeline ring."""
+        return self._flight
 
     def put(self, key: str, payload: bytes, cls_id: int = 0):
         """Queue a write through the proxy (encodes under the fed-back code
         at the next admission round). Returns the async request handle."""
         return self.proxy.write_async(key, self.layout, payload, cls_id)
 
+    def _zero_bufs(self, device: torch.device) -> None:
+        self._mbuf = obs.MetricsBuf.zeros(
+            counters=("serve_rounds", "serve_requested", "serve_served",
+                      "serve_decode_errors"),
+            hists={"serve_q": self._Q_BINS, "serve_batch": self._Q_BINS,
+                   "serve_pick_n": obs.PICK_BINS, "serve_pick_k": obs.PICK_BINS},
+            highs=("serve_q_hi",), device=device)
+        self._tlbuf = obs.TimelineBuf.zeros(
+            self._TL_CAP, series=("lam", "backlog", "pick_n", "pick_k", "served"),
+            hists={"delay": obs.DELAY_BINS}, device=device)
+        self._flight = obs.FlightRing(self._TL_CAP, label="serve")
+
+    def _collect(self, *, q: float, dt: float, n_nxt: torch.Tensor, k_nxt: torch.Tensor,
+                 requested: int, delays: torch.Tensor) -> None:
+        """One round's device telemetry: the counters, histograms and one
+        timeline slot, from host numbers and device tensors (the pick and the
+        served reads' delays, already on the device), with no host sync."""
+        served = int(delays.shape[0])
+        self._mbuf = (self._mbuf.count("serve_rounds", 1)
+                      .count("serve_requested", requested)
+                      .count("serve_served", served)
+                      .count("serve_decode_errors", requested - served)
+                      .observe("serve_q", q)
+                      .observe("serve_pick_n", n_nxt)
+                      .observe("serve_pick_k", k_nxt)
+                      .observe("serve_batch", served)
+                      .high("serve_q_hi", q))
+        # The reference's float32 rate: served / max(dt, 1e-9), 0 without a
+        # previous round.
+        lam = (np.float32(served) / np.maximum(np.float32(dt), np.float32(1e-9))
+               if dt > 0 else 0.0)
+        self._tlbuf = self._tlbuf.append(
+            {"lam": float(lam), "backlog": q, "pick_n": n_nxt, "pick_k": k_nxt,
+             "served": served},
+            {"delay": (obs.delay_bucket(delays), 1)},
+        )
+
     def serve_round(self, keys: list[str], *, steps: int) -> ClosedLoopResult:
         """One closed-loop serving round over ``keys``; see class docstring."""
-        if obs.enabled():
-            raise RuntimeError(
-                "REPRO_OBS is on, but the closed loop's device telemetry (metrics, "
-                "timeline, flight) is not ported yet (ROADMAP.md item 11); unset "
-                "REPRO_OBS to serve")
+        with obs.span("serve.round", keys=len(keys), steps=steps):
+            return self._serve_round(keys, steps=steps)
+
+    def _serve_round(self, keys: list[str], *, steps: int) -> ClosedLoopResult:
         payload_len = self.prompt_len * 4
+        collect = obs.enabled()
         t0 = time.perf_counter()
-        results = self.proxy.read_many(keys, self.layout, payload_len, raw=True)
+        with obs.span("serve.fetch", keys=len(keys)):
+            results = self.proxy.read_many(keys, self.layout, payload_len, raw=True)
         ok = [r.ok for r in results]
         good = [r for r in results if r.ok]
         if not good:
@@ -651,30 +709,55 @@ class ClosedLoopServer(_BucketStats):
         self._last_now = now
 
         arch, device = self.engine.arch, self.step.device
+        q = float(len(keys))
         mark0 = _mark(device)
-        rows_t, _ = self.step._upload(rows)
-        data, n_nxt, k_nxt, bkey = self.step.decode_on_device(
-            rows_t, present, n=self.layout.N, k=self.layout.K, q=float(len(keys)), dt=dt)
-        # The reference's key; its last field (telemetry collection) is off.
-        self._note_bucket(("pfd", *bkey, self.prompt_len, self.layout.strip_bytes, False))
-        toks = tokens_from_strips(data, self.layout.K, self.layout.strip_bytes,
-                                  self.prompt_len)
-        # Bucket-padding rows decode to zeros; the clip keeps any stray
-        # word (a high byte ≥ 128 is negative in int32) inside the table.
-        toks = torch.clamp(toks, 0, arch.cfg.vocab - 1)
-        logits, cache = arch.prefill_tokens(self.engine.params, toks,
-                                            max_seq=self.engine.max_seq)
+        # The reference's key; its last field is telemetry collection.
+        key = ("pfd", *self.step.codec.bucket_key("dec", self.layout.N, self.layout.K,
+                                                  rows.shape[2], len(good)),
+               self.prompt_len, self.layout.strip_bytes, collect)
+        self._note_bucket(key)
+        with obs.span("serve.launch", bucket=str(key), batch=len(good)):
+            rows_t, _ = self.step._upload(rows)
+            if collect:
+                # The served reads' delays go up with the rows, before the
+                # launch: from pinned memory, asynchronously, on a card.
+                delays = torch.tensor([r.total_s for r in good], dtype=torch.float32)
+                if device.type == "cuda":
+                    delays = delays.pin_memory()
+                delays = delays.to(device, non_blocking=True)
+            data, n_nxt, k_nxt, _ = self.step.decode_on_device(
+                rows_t, present, n=self.layout.N, k=self.layout.K, q=q, dt=dt)
+            toks = tokens_from_strips(data, self.layout.K, self.layout.strip_bytes,
+                                      self.prompt_len)
+            # Bucket-padding rows decode to zeros; the clip keeps any stray
+            # word (a high byte ≥ 128 is negative in int32) inside the table.
+            toks = torch.clamp(toks, 0, arch.cfg.vocab - 1)
+            logits, cache = arch.prefill_tokens(self.engine.params, toks,
+                                                max_seq=self.engine.max_seq)
+            if collect:
+                if self._mbuf is None:
+                    self._zero_bufs(device)
+                self._collect(q=q, dt=dt, n_nxt=n_nxt, k_nxt=k_nxt, requested=len(keys),
+                              delays=delays)
         self.stats.launches += 1
         mark1 = _mark(device)
-        # Generation continues at the padded batch; rows are cut to the
-        # served subset at the end.
-        gen = self.engine.continue_greedy(logits, cache, steps)
-        mark2 = _mark(device)
-        tokens = gen[: len(good)].cpu().numpy()
+        with obs.span("serve.generate", steps=steps):
+            # Generation continues at the padded batch; rows are cut to the
+            # served subset at the end.
+            gen = self.engine.continue_greedy(logits, cache, steps)
+            mark2 = _mark(device)
+            tokens = gen[: len(good)].cpu().numpy()
         # The pick comes to the host only now: generation forced the launch,
         # so this read costs no stall.
         next_code = (int(n_nxt), int(k_nxt))
         phase_ms["launch"], phase_ms["generate"] = _ms(mark0, mark1), _ms(mark1, mark2)
+        if collect:
+            # Where the round's budget went: "decode" is the whole launch
+            # (upload + admission + K1 + prefill), "generate" the token loop.
+            self._flight.record(
+                [("admit", phase_ms["fetch"] / 1e3), ("decode", phase_ms["launch"] / 1e3),
+                 ("generate", phase_ms["generate"] / 1e3)],
+                requested=len(keys), served=len(good), code=next_code)
         if self.write_policy is not None:
             self.write_policy.push(*next_code)  # close the write loop
         return ClosedLoopResult(

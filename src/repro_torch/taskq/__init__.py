@@ -20,11 +20,9 @@ the same pre-sampled trace pools.
   engine observes.
 * :mod:`repro_torch.taskq.sweep` — ``TaskqSweep``: (λ × policy × seed)
   grids in chunked launches with the fleet's bucket cache, trace pools
-  shared grid-wide; the ``BENCH_taskq.json`` artifact writer.
-
-The host flight log (``FlightLog``, ``TaskqSweep.replay_flight``) and the
-device telemetry (``collect``) wait for the obs device planes
-(``ROADMAP.md`` item 11).
+  shared grid-wide; ``TaskqSweep.replay_flight``, which re-runs one cell
+  with the flight recorder on and returns its ``repro_torch.obs.FlightLog``;
+  the ``BENCH_taskq.json`` artifact writer.
 """
 
 from repro_torch.taskq.engine import taskq_scan, taskq_scan_core

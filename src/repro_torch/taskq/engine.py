@@ -62,13 +62,6 @@ _INF = float("inf")
 CFG_FIELDS = ("J", "alpha", "r_max", "pol", "gk_max", "h_k", "h_n")
 
 
-def _refuse_collect() -> None:
-    raise RuntimeError(
-        "taskq telemetry (collect=True, or REPRO_OBS on): the device metrics and "
-        "timeline planes are not ported yet (ROADMAP.md item 11); unset REPRO_OBS "
-        "and pass collect=False")
-
-
 def taskq_scan_core(
     cfg: dict,
     interarrivals: torch.Tensor,
@@ -79,6 +72,9 @@ def taskq_scan_core(
     L: int,
     q_cap: int = 128,
     collect: bool = False,
+    valid: torch.Tensor | None = None,
+    window: int | None = None,
+    horizon: int | None = None,
     flight: bool = False,
 ) -> dict[str, torch.Tensor]:
     """The engine over a grid of G configurations, on the device of the inputs.
@@ -101,11 +97,22 @@ def taskq_scan_core(
     ``flight`` additionally returns a ``"flight"`` dict of ``arrival`` and
     ``depart`` (G, T) and per-lane ``start``/``tent``/``thread`` (G, T, W):
     starts and tentative completions from pass 1, the thread each started
-    task held from pass 2 (−1 for a lane that never starts). ``collect``
-    (the reference's device telemetry) is not ported yet and raises.
+    task held from pass 2 (−1 for a lane that never starts).
+
+    ``collect`` additionally records per step the idle-thread count, the
+    backlog length and the cancellations split into queued
+    (``#(live & S ≥ D)``) and in-service (``#(live & S < D & C > D)``) —
+    started tasks have S < D, and X > 0 makes S ≥ D imply C > D, so the
+    issued cancellations split exactly — and returns them as an ``"obs"``
+    :class:`repro_torch.obs.MetricsBuf` with one row per configuration
+    (idle histogram, cancellation counters, backlog high-water mark).
+    ``valid`` is an optional (G, T) or (T,) mask of the arrivals to count.
+    ``window`` (collect only) adds a ``"timeline"``
+    :class:`repro_torch.obs.TimelineBuf` whose backlog series is the exact
+    per-arrival queue length, over ``horizon`` arrivals (default T; the
+    sweep passes its pow2 bucket). The primary outputs are the same either
+    way.
     """
-    if collect:
-        _refuse_collect()
     G, T = interarrivals.shape
     dev = interarrivals.device
     W = pools.shape[2]
@@ -128,6 +135,11 @@ def taskq_scan_core(
         fl_c = torch.empty_like(fl_s)
         fl_tid = torch.empty((T, W, G), dtype=torch.int32, device=dev)
         minus1 = torch.full((G,), -1, dtype=torch.int32, device=dev)
+    if collect:
+        idle_t = torch.empty((T, G), dtype=torch.int32, device=dev)
+        q_t = torch.empty_like(total)
+        cq_t = torch.empty_like(idle_t)
+        cs_t = torch.empty_like(idle_t)
     t = torch.zeros(G, dtype=f32, device=dev)
     b = torch.zeros((G, L), dtype=f32, device=dev)
     ring = torch.full((G, q_cap), -_INF, dtype=f32, device=dev)
@@ -184,6 +196,12 @@ def taskq_scan_core(
         torch.add(queueing[step], service[step], out=total[step])
         ns[step] = n
         ks[step] = k
+        if collect:
+            idle_t[step] = idle
+            q_t[step] = q
+            lv = live.T
+            torch.sum(lv & (Sm >= D), 0, dtype=torch.int32, out=cq_t[step])
+            torch.sum(lv & (Sm < D) & (C > D), 0, dtype=torch.int32, out=cs_t[step])
         if flight:
             fl_t[step] = t
             fl_d[step] = D
@@ -196,7 +214,39 @@ def taskq_scan_core(
                          "start": fl_s.permute(2, 0, 1).contiguous(),
                          "tent": fl_c.permute(2, 0, 1).contiguous(),
                          "thread": fl_tid.permute(2, 0, 1).contiguous()}
+    if collect:
+        out.update(_collected(out, interarrivals, idle_t.T, q_t.T, cq_t.T, cs_t.T, L=L,
+                              valid=valid, window=window, horizon=horizon))
     return out
+
+
+def _collected(out: dict, interarrivals, idle, q, cancel_q, cancel_s, *, L: int, valid,
+               window, horizon) -> dict:
+    """The ``"obs"`` buffer (and ``"timeline"`` with a window) of a
+    collected run from its (G, T) per-step observables."""
+    G, T = q.shape
+    mask = (torch.ones_like(idle, dtype=torch.bool) if valid is None
+            else valid.expand(G, T))
+    w = mask.to(torch.int32)
+    # Cancellations *issued*: tasks with C > D. Ties C == D complete with
+    # the request (nothing to cancel), so this can undershoot the n−k budget
+    # by the tie count — it is the exact cancel-RPC tally.
+    buf = obs.MetricsBuf.zeros(
+        counters=("taskq_cancelled", "taskq_cancel_queue", "taskq_cancel_service"),
+        hists={"taskq_idle": L + 1},
+        highs=("taskq_q_hi",),
+        batch=(G,), device=q.device,
+    )
+    buf = buf.count("taskq_cancelled", ((cancel_q + cancel_s) * w).sum(1))
+    buf = buf.count("taskq_cancel_queue", (cancel_q * w).sum(1))
+    buf = buf.count("taskq_cancel_service", (cancel_s * w).sum(1))
+    buf = buf.observe("taskq_idle", idle, weight=w)
+    buf = buf.high("taskq_q_hi", torch.where(mask, q, 0.0))
+    res = {"obs": buf}
+    if window:
+        res["timeline"] = obs.sweep_timeline(out, interarrivals, window=window, valid=mask,
+                                             backlog=q, horizon=horizon)
+    return res
 
 
 def taskq_scan(
@@ -209,17 +259,21 @@ def taskq_scan(
     L: int,
     q_cap: int = 128,
     collect: bool | None = None,
+    window: int | None = None,
     flight: bool = False,
 ) -> dict[str, torch.Tensor]:
     """One configuration on the pools' device: ``cfg`` holds the
     :data:`CFG_FIELDS` as numbers and (len,) tables, ``interarrivals`` and
     ``pool_idx`` are (T,) (numpy or tensors). Returns (T,) tensors (and
-    (T, W) flight lanes). ``collect`` defaults to the ``REPRO_OBS`` gate;
-    telemetry is not ported yet, so it raises when on."""
+    (T, W) flight lanes); with ``collect`` (default: the ``REPRO_OBS``
+    gate) also the run's ``"obs"`` buffer, and with a ``window`` its
+    ``"timeline"``, both as one configuration's."""
     if collect is None:
         collect = obs.enabled()
-    if collect:
-        _refuse_collect()
+    if window is not None:
+        window = int(window)
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
     dev = pools.device
     row = {}
     for name in CFG_FIELDS:
@@ -227,8 +281,13 @@ def taskq_scan(
         row[name] = torch.as_tensor(cfg[name], dtype=dtype, device=dev)[None]
     inter = torch.as_tensor(interarrivals, dtype=torch.float32, device=dev)[None]
     idx = torch.as_tensor(pool_idx, device=dev)[None]
-    out = taskq_scan_core(row, inter, idx, pools, pool_sizes, L=L, q_cap=q_cap, flight=flight)
-    res = {name: v[0] for name, v in out.items() if name != "flight"}
+    out = taskq_scan_core(row, inter, idx, pools, pool_sizes, L=L, q_cap=q_cap,
+                          collect=bool(collect), window=window, flight=flight)
+    res = {name: v[0] for name, v in out.items() if name not in ("flight", "obs", "timeline")}
     if flight:
         res["flight"] = {name: v[0] for name, v in out["flight"].items()}
+    if collect:
+        res["obs"] = out["obs"].reduce_rows()
+    if "timeline" in out:
+        res["timeline"] = out["timeline"].take(0)
     return res

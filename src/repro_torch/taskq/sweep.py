@@ -39,12 +39,9 @@ from repro_torch.fleet.sweep import (
     SweepCase,
     SweepResult,
     frontier_fold,
-    timeline_window,
 )
-from repro_torch.taskq.engine import taskq_scan_core
+from repro_torch.taskq.engine import taskq_scan, taskq_scan_core
 from repro_torch.taskq.policies import encode_policy
-
-_ITEM_11 = "not ported yet (ROADMAP.md item 11, the obs device planes)"
 
 
 def taskq_streams(case: SweepCase, count: int, n_rows: int):
@@ -104,14 +101,23 @@ class TaskqSweep(ChunkedSweep):
             hn_len,
             tuple(pool_shape),
             self.mesh_shape,
-            timeline_window(t_b),
+            obs.timeline_window(t_b),
         )
 
-    def _build(self, key: tuple):
-        L, q_cap = key[2], key[3]
+    def _build(self, key: tuple, collect: bool = False):
+        t_b, L, q_cap, window = key[1], key[2], key[3], key[-1]
 
         def launch(cfg, inter, idx, pools, sizes, count):
-            return taskq_scan_core(cfg, inter, idx, pools, sizes, L=L, q_cap=q_cap)
+            valid = obs.valid_mask(cfg, count) if collect else None
+            out = taskq_scan_core(cfg, inter, idx, pools, sizes, L=L, q_cap=q_cap,
+                                  collect=collect, valid=valid,
+                                  window=window if collect else None, horizon=t_b)
+            if collect:
+                # The engine's buffer (cancellations, idle, backlog) rides with
+                # the generic per-case picks; disjoint names union-merge.
+                out["obs"] = out["obs"].merge(
+                    obs.sweep_point_metrics(out, "taskq", valid=valid))
+            return out
 
         return launch
 
@@ -164,15 +170,14 @@ class TaskqSweep(ChunkedSweep):
         folds each chunk into the fleet frontier statistics instead of
         stacking the exact (G, count) block.
 
-        With ``REPRO_OBS`` on the run raises: the device telemetry planes
-        are not ported yet (``ROADMAP.md`` item 11).
+        With ``REPRO_OBS`` on, the result also carries ``metrics`` (the
+        engine's cancellation split, idle histogram and backlog high-water
+        mark, plus request, task and pick counts) and ``timeline`` (per-case
+        windowed series with the exact backlog); the primary outputs are the
+        same bit for bit.
         """
         if not cases:
             raise ValueError("empty case grid")
-        if obs.enabled():
-            raise RuntimeError(
-                f"REPRO_OBS is on, but the sweep's device telemetry planes are {_ITEM_11}; "
-                "unset REPRO_OBS to run the sweep")
         spec = resolve_stream(stream)
         Ls = {c.L for c in cases}
         if len(Ls) != 1:
@@ -191,6 +196,9 @@ class TaskqSweep(ChunkedSweep):
         key = self.bucket_key(len(cases), count, L, hk_len, hn_len, pools.pools.shape)
         chunk = key[0]
         cfg = self._stack_cfg(cases, hk_len, hn_len)
+        collect = obs.enabled()
+        if collect:
+            cfg["obs_count"] = np.full(len(cases), count, np.int32)
 
         def chunk_streams(rows):
             inter = np.empty((len(rows), count), np.float32)
@@ -202,7 +210,7 @@ class TaskqSweep(ChunkedSweep):
                 inter[j], idx[j] = taskq_streams(cases[i], count, pools.n_rows)
             return inter, idx
 
-        fn = self._fn_for(key)
+        fn = self._fn_for(key, collect)
         fold = frontier_fold(int(count * spec.warmup_frac), hn_len) if spec else None
         # The one device copy of the pools every chunk reads.
         broadcast = (pools.pools.to(self.device), pools.sizes_mb.to(self.device))
@@ -216,16 +224,36 @@ class TaskqSweep(ChunkedSweep):
             compiles=self.stats.traces - traces0,
             launches=self.stats.launches - launches0,
             streamed=StreamedStats(spec.warmup_frac, count, stacked) if spec else None,
+            metrics=self._last_metrics,
+            timeline=self._last_timeline,
             mesh_shape=self.mesh_shape,
         )
 
     def replay_flight(self, result: TaskqResult, pools: DevicePools, case_index: int, *,
-                      label: str | None = None):
-        """Re-run one grid point with the flight recorder on and return its
-        ``FlightLog`` — the host flight log is :data:`_ITEM_11`, so this
-        raises. The engine's flight arrays themselves are ported:
-        :func:`repro_torch.taskq.engine.taskq_scan` with ``flight=True``."""
-        raise NotImplementedError(f"replay_flight: the host FlightLog is {_ITEM_11}")
+                      label: str | None = None) -> obs.FlightLog:
+        """Re-run ONE grid point of ``result`` with the flight recorder on.
+
+        The "aggregate engines stream, flight replays one case" rule: grid
+        runs keep their streamed/stacked reductions, and an anomalous cell
+        is zoomed into after the fact — this regenerates the case's host
+        streams from its seed (:func:`taskq_streams`), replays it through
+        :func:`repro_torch.taskq.engine.taskq_scan` with ``flight=True`` on
+        the sweep's device (no sweep bucket is touched) and returns the
+        :class:`repro_torch.obs.FlightLog`. The replay consumes the stored
+        ``result.cfg`` row, so its per-request delays equal the sweep
+        cell's.
+        """
+        G = len(result.cases)
+        if not 0 <= case_index < G:
+            raise ValueError(f"case_index {case_index} outside grid of {G}")
+        case = result.cases[case_index]
+        cfg_row = {name: np.asarray(v[case_index])
+                   for name, v in result.cfg.items() if name != "obs_count"}
+        inter, idx = taskq_streams(case, result.count, pools.n_rows)
+        out = taskq_scan(cfg_row, np.asarray(inter, np.float32), np.asarray(idx, np.int32),
+                         pools.pools.to(self.device), pools.sizes_mb.to(self.device),
+                         L=case.L, q_cap=self.q_cap, collect=False, flight=True)
+        return obs.FlightLog(out, label=label or f"taskq[{case_index}]:{case.policy.name}")
 
 
 def write_taskq_artifact(
@@ -235,16 +263,19 @@ def write_taskq_artifact(
     warmup_frac: float = 0.05,
     extra: dict | None = None,
     flight=None,
+    flight_top_k: int = 3,
 ) -> dict:
     """Reduce an exact sweep and write the ``BENCH_taskq.json`` artifact.
 
     Reuses the fleet's frontier reductions (per-point delay stats, per-policy
     capacities, convergence, headline ratios) on the exact per-request
-    delays. ``flight`` (a replayed ``FlightLog``'s block in the reference)
-    is :data:`_ITEM_11` and raises when given.
+    delays.
+
+    ``flight``: optional :class:`repro_torch.obs.FlightLog` from a
+    :meth:`TaskqSweep.replay_flight` zoom of one cell — adds a ``"flight"``
+    block with the structural counts (records emitted, exemplars found)
+    plus the replayed case's label.
     """
-    if flight is not None:
-        raise NotImplementedError(f"write_taskq_artifact(flight=...): the FlightLog is {_ITEM_11}")
     points = frontier_points(result, warmup_frac)
     artifact = {
         "schema": "repro.taskq/BENCH_taskq/v1",
@@ -258,6 +289,15 @@ def write_taskq_artifact(
         "convergence": convergence_stats(result, warmup_frac),
         "headline": headline_ratios(points),
     }
+    if flight is not None:
+        exemplars = flight.exemplars(flight_top_k)
+        artifact["flight"] = {
+            "label": flight.label,
+            "requests": len(flight),
+            "records": len(flight.records()),
+            "exemplars": len(exemplars),
+            "exemplar_reqs": [ex["req"] for ex in exemplars],
+        }
     if extra:
         artifact.update(extra)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

@@ -314,12 +314,16 @@ def test_closed_loop_first_round_has_no_interarrival(monkeypatch):
 def test_closed_loop_refuses_telemetry_it_cannot_collect(monkeypatch):
     arch = get("qwen1.5-0.5b", smoke=True)
     layout = SharedKeyLayout(K=4, r=2, strip_bytes=PROMPT_LEN)
-    _, proxy, _, server = _port_loop(arch, arch.init(torch.Generator()), MemoryStore(), layout)
+    store = MemoryStore()
+    keys, _ = _store_prompts(np.random.default_rng(1), arch.cfg.vocab, 1, layout,
+                             [(store, _port_store_prompt, CODEC)])
+    _, proxy, _, server = _port_loop(arch, arch.init(torch.Generator()), store, layout)
     try:
         assert server.metrics is None and server.timeline is None and server.flight is None
-        monkeypatch.setenv("REPRO_OBS", "1")
-        with pytest.raises(RuntimeError, match="item 11"):
-            server.serve_round(["p/0"], steps=1)
+        monkeypatch.setenv("REPRO_OBS", "1")  # the round collects its telemetry
+        server.serve_round(keys, steps=1)
+        assert server.metrics.snapshot()["counters"]["serve_rounds"] == 1
+        assert server.timeline.snapshot()["slots"] == 1 and len(server.flight) == 1
         with pytest.raises(ValueError, match="needs 68 bytes"):
             ClosedLoopServer(server.engine, proxy, layout, server.step, prompt_len=17)
     finally:

@@ -313,9 +313,10 @@ def test_streamed_run_equals_materialized_bit_for_bit():
 def test_sweep_refuses_what_is_not_ported():
     cases = grid_cases([5.0], [PolicySpec.tofec()], [0], CLS, L)
     obs.set_enabled(True)
-    try:
-        with pytest.raises(RuntimeError, match="item 11"):
-            _sweep().run(cases, count=16)
+    try:  # REPRO_OBS runs the sweep with its telemetry planes
+        res = _sweep().run(cases, count=16)
+        assert res.metrics.snapshot()["counters"]["fleet_requests"] == 16
+        assert res.timeline.snapshot()["capacity"] == 64
     finally:
         obs.set_enabled(None)
     with pytest.raises(NotImplementedError, match="item 12"):

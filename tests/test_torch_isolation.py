@@ -1,5 +1,5 @@
-"""The port, chip_smoke.py, k1_ablation.py and k2_ablation.py import neither jax
-nor the reference package."""
+"""The port, chip_smoke.py, obs_cost.py, k1_ablation.py and k2_ablation.py import
+neither jax nor the reference package."""
 
 import os
 import pathlib
@@ -20,6 +20,7 @@ chip_smoke.request_class()
 chip_smoke.k1_bound(32, 64, 48, 524288)
 import k1_ablation
 import k2_ablation
+import obs_cost
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
@@ -27,6 +28,7 @@ print("SLICE", sorted(m for m in sys.modules
                      if m.startswith(("repro_torch.taskq", "repro_torch.sched"))))
 print("LM", sorted(m for m in sys.modules
                   if m.startswith(("repro_torch.models", "repro_torch.configs"))))
+print("OBS", sorted(m for m in sys.modules if m.startswith("repro_torch.obs")))
 print("BAD", bad)
 """
 
@@ -37,19 +39,23 @@ def test_port_imports_no_jax_and_no_reference_package():
                          env=env, cwd=ROOT, timeout=240)
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
-    assert int(lines["LOADED"]) >= 54  # every module of the port was imported
+    assert int(lines["LOADED"]) >= 60  # every module of the port was imported
     assert lines["SLICE"] == str([f"repro_torch.{pkg}{mod}" for pkg, mods in (
         ("sched", ("", ".frontier", ".scan", ".sweep")),
         ("taskq", ("", ".engine", ".policies", ".sweep"))) for mod in mods])
     assert lines["LM"] == str([f"repro_torch.{pkg}{mod}" for pkg, mods in (
         ("configs", ("", ".gemma2_2b", ".mistral_nemo_12b", ".qwen1_5_0_5b", ".yi_6b")),
         ("models", ("", ".config", ".layers", ".lm", ".registry"))) for mod in mods])
+    assert lines["OBS"] == str([f"repro_torch.obs{mod}" for mod in (
+        "", ".compile", ".dashboard", ".flight", ".meta", ".metrics", ".profile", ".slo",
+        ".state", ".timeline", ".trace")])
     assert lines["BAD"] == "[]", lines["BAD"]
 
 
 def test_port_sources_name_no_jax_import():
     files = list((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "k1_ablation.py", ROOT / "k2_ablation.py"]
+        ROOT / "chip_smoke.py", ROOT / "obs_cost.py", ROOT / "k1_ablation.py",
+        ROOT / "k2_ablation.py"]
     for path in files:
         for line in path.read_text().splitlines():
             words = line.split()

@@ -329,9 +329,10 @@ def test_sched_chunk_padding_keeps_results_exact():
 def test_sweep_refuses_what_is_not_ported():
     cases = sched_cases([_mix2(20.0)], [DisciplineSpec.fifo()], [0], L=L)
     obs.set_enabled(True)
-    try:
-        with pytest.raises(RuntimeError, match="item 11"):
-            _sweep().run(cases, count=16)
+    try:  # REPRO_OBS runs the sweep with its telemetry planes
+        res = _sweep().run(cases, count=16)
+        assert res.metrics.snapshot()["counters"]["sched_requests"] == 16
+        assert "backlog" not in res.timeline.snapshot()["series"]
     finally:
         obs.set_enabled(None)
     with pytest.raises(ValueError, match="permute"):

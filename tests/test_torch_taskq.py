@@ -335,27 +335,28 @@ def test_mixed_L_rejected():
 
 
 def test_sweep_refuses_what_is_not_ported(tmp_path):
-    """Narrow pools, REPRO_OBS (item 11's telemetry), the flight log and
-    telemetry collection raise; the default device is the card."""
+    """Narrow pools raise; REPRO_OBS runs the sweep and the engine with
+    their telemetry, the flight log replays a cell and the artifact carries
+    its block; the default device is the card."""
     store, dp = make_pools(correlation=0.0, samples=128)
     cases = grid_cases([10.0], [PolicySpec.tofec()], [0], CLS, L)
     with pytest.raises(ValueError, match="pool width"):
         _sweep().run(cases, 64, store.device_pools(n_max=8, device=CPU))
     obs.set_enabled(True)
     try:
-        with pytest.raises(RuntimeError, match="item 11"):
-            _sweep().run(cases, 64, dp)
-        with pytest.raises(RuntimeError, match="item 11"):
-            taskq_scan({"J": 3.0, "alpha": 0.99, "r_max": 2.0, "pol": 1, "gk_max": 6,
-                        "h_k": np.zeros(7), "h_n": np.zeros(13)},
-                       np.ones(4), np.zeros(4, np.int32), dp.pools, dp.sizes_mb, L=L)
+        snap = _sweep().run(cases, 64, dp).metrics.snapshot()
+        assert snap["counters"]["taskq_requests"] == 64
+        out = taskq_scan({"J": 3.0, "alpha": 0.99, "r_max": 2.0, "pol": 1, "gk_max": 6,
+                          "h_k": np.zeros(7), "h_n": np.zeros(13)},
+                         np.ones(4), np.zeros(4, np.int32), dp.pools, dp.sizes_mb, L=L)
+        assert sum(out["obs"].snapshot()["hists"]["taskq_idle"]) == 4
     finally:
         obs.set_enabled(None)
     res = _sweep().run(cases, 64, dp)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _sweep().replay_flight(res, dp, 0)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        write_taskq_artifact(str(tmp_path / "a.json"), res, flight=object())
+    log = _sweep().replay_flight(res, dp, 0)
+    assert len(log) == 64
+    art = write_taskq_artifact(str(tmp_path / "a.json"), res, flight=log)
+    assert art["flight"]["requests"] == 64
     with pytest.raises(ValueError, match="q_cap"):
         _sweep(q_cap=0)
     if not torch.cuda.is_available():
