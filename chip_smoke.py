@@ -13,8 +13,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the sources, one nvcc for each, started together;
 3. kernels — K1 against its plain version, byte for byte, at the main
    path's decode and encode shapes (batch 32), the write path's encode of
-   128 objects (checked in slices of 32), a k=256 case, a ragged case, each
-   k in 1-5, 7-9 and m = 17; times it at the decode, encode and batch-128
+   128 objects (checked in slices of 32), a k=256 case, a ragged case, the
+   checkpoint's (8, 4) encode over a 2^24-byte strip bucket, each k in
+   1-5, 7-9 and m = 17; times it at the decode, encode and batch-128
    encode shapes, per call (CUDA events around one call, median of 20) and
    back to back (events around 10 calls, divided by 10, median of 20), each
    as a multiple of its bound, and the plain version at the decode shape;
@@ -84,6 +85,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    recorder; ``profile_launch`` of K1 and of one fluid-scan case, every
    ``frac_peak`` at or under 1.05; each path's wall with collection on and
    off. Artifacts go to ``chiprun_out/obs/``.
+12. train — run right after phase 6: qwen1.5-0.5b at full width trained
+   through ``Trainer`` at seq 4,096 × batch 2 (``remat_policy="nothing"``,
+   AdamW defaults, seeded weights and ``SyntheticTokens(seed=0)``), with
+   erasure-coded checkpoints through ``AsyncCheckpointer`` at (8, 4) (K1
+   encode, one launch per strip-bucket group): 6 steps straight; 3 steps,
+   strips 0 and 2 of every leaf lost, a trainer rebuilt from the store
+   alone (K1 decode, every crc checked) resuming at step 3 for 3 more,
+   whose final loss must equal the straight run's to rel = 1e-4; each
+   step's stream time, tokens/s, loss and grad norm, peak device memory,
+   the checkpoint's save and restore splits, one step under
+   torch.profiler, and one ``CodedShardReader`` shard of 2 × 4,097 tokens
+   written and read back through the proxy; K1's launches on the path
+   must cover every encode and decode group.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``. Without a card it
@@ -223,8 +237,9 @@ K1_KS = (1, 2, 3, 4, 5, 7, 8, 9)
 
 def k1_cases(device, rng) -> list[tuple[str, "object", "object"]]:
     """(label, bitmats, data) at the main path's shapes (decode and encode at
-    batch 32, encode at batch 128), k = 256, a ragged B, each k of
-    ``K1_KS`` and m = 17 (B = 4,176: a masked last warp step)."""
+    batch 32, encode at batch 128), k = 256, a ragged B, the checkpoint's
+    (8, 4) encode over a 2^24-byte bucket, each k of ``K1_KS`` and m = 17
+    (B = 4,176: a masked last warp step)."""
     import torch
 
     from repro_torch.coding import gf256, rs
@@ -254,6 +269,10 @@ def k1_cases(device, rng) -> list[tuple[str, "object", "object"]]:
          up(rng.integers(0, 256, (2, 256, 4096), dtype=np.uint8))),
         ("ragged", up(gf256.expand_bitmatrix_batched(ragged)),
          up(rng.integers(0, 256, (3, 6, 1001), dtype=np.uint8))),
+        # The checkpoint's encode: (8, 4) parity, a 2^24-byte strip bucket.
+        ("ckpt_k4", up(gf256.expand_bitmatrix_batched(
+            np.broadcast_to(rs.cauchy_parity_matrix(8, 4), (2, 4, 4)))),
+         up(rng.integers(0, 256, (2, 4, 2**24), dtype=np.uint8))),
     ]
     for kk, m in [(kk, 8) for kk in K1_KS] + [(K_MAX, 17)]:
         mats = rng.integers(0, 256, (2, m, kk), dtype=np.uint8)
@@ -1587,6 +1606,374 @@ def run_obs_profile(device, fleet: dict, *, strip_bytes: int = FILE_BYTES // K_M
     return snap
 
 
+#: The ``[train]`` phase: ``SERVE_MODEL`` at full width trained at the repo's
+#: ``train_4k`` sequence length, batch cut from the pod cell's 256 to 2 for
+#: one card; 6 straight steps, 3 + restart + 3 with strips lost.
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_EVERY = 4096, 2, 6, 3
+#: Strips lost from every leaf before the restart (n − k = 4 may go).
+TRAIN_LOST = ("strip0", "strip2")
+
+
+def _timer(device):
+    """A stopwatch on the stream clock (CUDA events) on a card, on the host
+    clock otherwise: ``start()`` returns ``stop``; ``stop()`` ends the
+    interval and returns a function that reads its ms (after the device
+    has got there)."""
+    import torch
+
+    def start():
+        if device.type != "cuda":
+            t0 = time.monotonic()
+
+            def stop_host():
+                ms = (time.monotonic() - t0) * 1e3
+                return lambda: ms
+            return stop_host
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+
+        def stop():
+            end.record()
+
+            def read():
+                end.synchronize()
+                return begin.elapsed_time(end)
+            return read
+        return stop
+    return start
+
+
+class _Tally:
+    """Wall seconds, calls and bytes of the methods ``wrap``ped on objects,
+    by name (the checkpoint's store puts and gets, the codec's encode and
+    decode), plus K1's time on the stream clock. The wrappers are instance
+    attributes; ``unwrap`` removes them."""
+
+    def __init__(self):
+        self.wrapped: list = []
+        self._reset()
+
+    def _reset(self) -> None:
+        self.s: dict[str, float] = {}
+        self.n: dict[str, int] = {}
+        self.bytes: dict[str, int] = {}
+        self.k1_events: list = []
+
+    def unwrap(self) -> None:
+        for obj, name in self.wrapped:
+            delattr(obj, name)
+        self.wrapped = []
+
+    def wrap(self, obj, name: str, nbytes=None):
+        fn = getattr(obj, name)
+        self.wrapped.append((obj, name))
+
+        def timed(*args, **kwargs):
+            t0 = time.monotonic()
+            out = fn(*args, **kwargs)
+            self.s[name] = self.s.get(name, 0.0) + time.monotonic() - t0
+            self.n[name] = self.n.get(name, 0) + 1
+            if nbytes is not None:
+                self.bytes[name] = self.bytes.get(name, 0) + nbytes(args, out)
+            return out
+
+        setattr(obj, name, timed)
+
+    def wrap_k1(self, backend):
+        """K1 inside the codec's kernel backend, between CUDA events (read
+        after the work has finished)."""
+        import torch
+
+        fn = backend.matmul_prepped
+        self.wrapped.append((backend, "matmul_prepped"))
+
+        def timed(bitmats, data):
+            if data.device.type != "cuda":
+                return fn(bitmats, data)
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            out = fn(bitmats, data)
+            end.record()
+            self.k1_events.append((begin, end))
+            return out
+
+        backend.matmul_prepped = timed
+
+    def take(self) -> dict:
+        """The totals since the last ``take``, then reset."""
+        out = {"s": dict(self.s), "n": dict(self.n), "bytes": dict(self.bytes),
+               "k1_ms": sum(b.elapsed_time(e) for b, e in self.k1_events),
+               "k1_calls": len(self.k1_events)}
+        self._reset()
+        return out
+
+
+def _rss_peak_gb() -> float:
+    """This process's peak resident set, GB (``ru_maxrss`` is in KiB on
+    Linux)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def _mem_total_gb() -> float:
+    """The host's ``MemTotal``, GB."""
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("no MemTotal in /proc/meminfo")
+
+
+def run_train(device, *, smoke: bool = False, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
+              seed: int = 0) -> dict:
+    """The training path through ``Trainer`` with ``SERVE_MODEL`` (its smoke
+    config with ``smoke``) on seeded random weights, erasure-coded
+    checkpoints through ``AsyncCheckpointer`` (K1 encode on a card) and a
+    restart from 6 of 8 strips (K1 decode).
+
+    A: 6 steps straight, checkpoints at 3 and 6. B: 3 steps, checkpoint at
+    3; strips 0 and 2 of every leaf lost; a trainer rebuilt from the store
+    alone resumes at step 3 and runs 3 more. Raises if a loss is not finite,
+    a crc fails, the restart starts elsewhere, B's final loss is not A's to
+    rel = 1e-4, or a shard written through ``store_coded_object`` does not
+    read back through the proxy byte for byte. Prints each step's stream
+    time, tokens/s, loss and grad norm, peak device memory, each
+    checkpoint's save split (host snapshot, encode with K1's stream time
+    and launches, store puts; crc timed apart on the same bytes), the
+    restore's split (fetch, decode, crc) and the bytes written; on a card
+    one more step runs under torch.profiler."""
+    import zlib
+
+    import torch
+
+    from repro_torch.ckpt import latest_step
+    from repro_torch.coding.codec import get_codec, pow2_bucket
+    from repro_torch.coding.layout import layout_for_file
+    from repro_torch.core import StaticPolicy
+    from repro_torch.data import CodedShardReader
+    from repro_torch.kernels.gf2mm.gf2mm import gf2_rs_matmul_bytes
+    from repro_torch.models import get
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.storage import FaultyStore, MemoryStore, Proxy
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.tree import tree_flatten
+
+    arch = get(SERVE_MODEL, smoke=smoke)
+    cfg = arch.cfg
+    shape = ShapeSpec("train_4k_cut", "train", seq=seq, batch=batch)
+    tc = TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY, log_every=1,
+                       seed=seed)
+    clock = _timer(device)
+    clock_name = "stream" if device.type == "cuda" else "host"
+    tally = _Tally()
+    codec = get_codec(device=device)  # the instance save/restore_checkpoint use
+    tally.wrap(codec, "encode_blobs")
+    tally.wrap(codec, "decode")
+    tally.wrap_k1(codec.backend)
+    k1_start = gf2_rs_matmul_bytes.launches
+
+    def store():
+        s = MemoryStore()
+        tally.wrap(s, "put", lambda args, out: len(args[1]))
+        tally.wrap(s, "get", lambda args, out: len(out))
+        return s
+
+    def instrument(t, tag: str, steps: list) -> None:
+        """Step times on the stream clock and the snapshot's host time."""
+        step_fn, submit = t.step_fn, t.ckpt.submit
+
+        def step(*args):
+            stop = clock()
+            out = step_fn(*args)
+            steps.append(stop())
+            return out
+
+        def snap(step_no, tree):
+            t0 = time.monotonic()
+            submit(step_no, tree)
+            snaps.append((tag, step_no, time.monotonic() - t0))
+
+        t.step_fn, t.ckpt.submit = step, snap
+
+    snaps: list = []
+    rec: dict = {"model": cfg.name, "seq": seq, "batch": batch, "runs": {}}
+
+    def train(tag: str, t, steps: int | None) -> list[dict]:
+        stops: list = []
+        instrument(t, tag, stops)
+        tally.take()
+        k1_before = gf2_rs_matmul_bytes.launches
+        t0 = time.monotonic()
+        log = t.run(steps)
+        wall = time.monotonic() - t0
+        ms = [s() for s in stops]
+        save = tally.take()
+        for r, step_ms in zip(log, ms):
+            r["ms"] = step_ms
+            r["tok_per_s"] = batch * seq / (step_ms / 1e3)
+            if not np.isfinite(r["loss"]) or not np.isfinite(r["grad_norm"]):
+                raise AssertionError(f"[train] {tag}: step {r['step']} loss {r['loss']}")
+            print(f"[train] {tag} step {r['step']}: {step_ms:.3f} ms ({clock_name} clock), "
+                  f"{r['tok_per_s']:.0f} tokens/s, loss {r['loss']:.6f}, grad norm "
+                  f"{r['grad_norm']:.6f}", flush=True)
+        ck = [s for s in snaps if s[0] == tag]
+        run = {"log": log, "wall_s": wall, "save": save, "snapshot_s": [s[2] for s in ck],
+               "k1_launches": gf2_rs_matmul_bytes.launches - k1_before}
+        print(f"[train] {tag}: {len(log)} steps in {wall:.3f} s wall; {len(ck)} checkpoint(s) "
+              f"at steps {[s[1] for s in ck]}: host snapshot {sum(run['snapshot_s']):.3f} s, "
+              f"encode {save['s'].get('encode_blobs', 0):.3f} s ({save['n'].get('encode_blobs', 0)} "
+              f"calls; K1 {save['k1_ms']:.3f} ms stream, {run['k1_launches']} launches), store "
+              f"puts {save['s'].get('put', 0):.3f} s for {save['bytes'].get('put', 0) / 1e9:.3f} GB "
+              f"in {save['n'].get('put', 0)} objects", flush=True)
+        rec["runs"][tag] = run
+        return log
+
+    def manifest(s, prefix: str, step: int) -> dict:
+        return json.loads(s.get(f"{prefix}/step{step}/MANIFEST").decode())
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    store_a = store()
+    t_a = Trainer(arch, shape, store_a, cfg=tc, ckpt_prefix="a", device=device)
+    n_params = sum(t.numel() for _, t in tree_flatten(t_a.params))
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params:,} "
+          f"parameters ({cfg.dtype}) from seed {seed}; seq {seq} x batch {batch} = "
+          f"{seq * batch} tokens a step; remat {cfg.remat_policy}, AdamW defaults; host "
+          f"MemTotal {_mem_total_gb():.1f} GB", flush=True)
+    log_a = train("A", t_a, None)
+    if device.type == "cuda":
+        rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
+        print(f"[train] peak device memory over run A: {rec['peak_mem_bytes'] / 1e9:.3f} GB",
+              flush=True)
+    man = manifest(store_a, "a", TRAIN_STEPS)
+    leaves = man["leaves"]
+    payload = sum(m["bytes"] for m in leaves.values())
+    groups = {(m["n"], m["k"], pow2_bucket(m["strip_bytes"], 128)) for m in leaves.values()}
+    rec.update(n_params=n_params, leaves=len(leaves), payload_bytes=payload,
+               encode_groups=len(groups))
+    print(f"[train] one checkpoint: {len(leaves)} leaves, {payload / 1e9:.3f} GB of payload, "
+          f"{sum(m['n'] * m['strip_bytes'] for m in leaves.values()) / 1e9:.3f} GB of strips at "
+          f"(n, k) {sorted({(m['n'], m['k']) for m in leaves.values()})}, {len(groups)} encode "
+          f"groups (one K1 launch each)", flush=True)
+    # crc32 timed apart over the bytes the checkpoint hashes (the final state).
+    crc_s = 0.0
+    for _, leaf in tree_flatten({"params": t_a.params, "opt": t_a.opt_state}):
+        host = leaf.detach().cpu().reshape(-1).view(torch.uint8).numpy()
+        t0 = time.monotonic()
+        zlib.crc32(host)
+        crc_s += time.monotonic() - t0
+        del host
+    rec["crc_s"] = crc_s
+    print(f"[train] crc32 of one checkpoint's {payload / 1e9:.3f} GB, timed apart on the same "
+          f"bytes: {crc_s:.3f} s (host)", flush=True)
+    t_a.ckpt.close()
+    final_a = log_a[-1]["loss"]
+    del t_a, store_a  # A's 2 checkpoints leave host memory before B writes its own
+
+    store_b = store()
+    t_b = Trainer(arch, shape, store_b, cfg=tc, ckpt_prefix="b", device=device)
+    train("B", t_b, TRAIN_CKPT_EVERY)
+    t_b.ckpt.close()
+    del t_b
+    if latest_step(store_b, "b") != TRAIN_CKPT_EVERY:
+        raise AssertionError(f"[train] B's latest checkpoint is {latest_step(store_b, 'b')}")
+    faulty = FaultyStore(store_b)
+    lost = [key for key in store_b.keys() if key.endswith(TRAIN_LOST)]
+    for key in lost:
+        faulty.lose_object(key)
+    dec_groups = {(m["n"], m["k"], m["strip_bytes"])
+                  for m in manifest(store_b, "b", TRAIN_CKPT_EVERY)["leaves"].values()}
+    tally.take()
+    k1_before = gf2_rs_matmul_bytes.launches
+    t0 = time.monotonic()
+    t_b2 = Trainer(arch, shape, faulty, cfg=tc, ckpt_prefix="b", device=device)
+    _sync(device)
+    restore_s = time.monotonic() - t0
+    res = tally.take()
+    if t_b2.start_step != TRAIN_CKPT_EVERY:
+        raise AssertionError(f"[train] the restart starts at {t_b2.start_step}")
+    rec["restore"] = {"wall_s": restore_s, "fetch_s": res["s"].get("get", 0.0),
+                      "fetched_bytes": res["bytes"].get("get", 0),
+                      "decode_s": res["s"].get("decode", 0.0), "k1_ms": res["k1_ms"],
+                      "k1_launches": gf2_rs_matmul_bytes.launches - k1_before,
+                      "decode_groups": len(dec_groups), "lost_objects": len(lost)}
+    r = rec["restore"]
+    print(f"[train] restart from store B with {len(lost)} strips lost (strips 0 and 2 of "
+          f"every leaf): start_step {t_b2.start_step}, every crc held; restore {restore_s:.3f} "
+          f"s wall: fetch {r['fetch_s']:.3f} s ({r['fetched_bytes'] / 1e9:.3f} GB), decode "
+          f"{r['decode_s']:.3f} s (K1 {r['k1_ms']:.3f} ms stream, {r['k1_launches']} launches "
+          f"for {len(dec_groups)} groups), the rest (crc, upload) "
+          f"{restore_s - r['fetch_s'] - r['decode_s']:.3f} s", flush=True)
+    log_b = train("B2", t_b2, TRAIN_STEPS - TRAIN_CKPT_EVERY)
+    final_b = log_b[-1]["loss"]
+    rel = abs(final_b - final_a) / abs(final_a)
+    rec.update(final_a=final_a, final_b=final_b, rel_diff=rel)
+    print(f"[train] final loss: straight {final_a!r}, restarted {final_b!r}, relative "
+          f"difference {rel:.3e} (bar 1e-4)", flush=True)
+    if log_b[-1]["step"] != TRAIN_STEPS or not rel <= 1e-4:
+        raise AssertionError(f"[train] the restarted run ends at step {log_b[-1]['step']} with "
+                             f"loss {final_b}, the straight run's is {final_a}")
+
+    if device.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        batch_t = {k: torch.from_numpy(v).to(device)
+                   for k, v in t_b2.data.batch_at(TRAIN_STEPS).items()}
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            t_b2.step_fn(t_b2.params, t_b2.opt_state, batch_t)
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+        busy_ms, events = device_spans(prof)
+        top = _device_top(events, 5)
+        # Idle share against the unprofiled steps' stream time (the profiler
+        # stretches its own step's wall), as the [serve] phase reports it.
+        warm = [r["ms"] for tag in ("B", "B2") for r in rec["runs"][tag]["log"]]
+        step_ms = float(np.median(warm))
+        rec["profile"] = {"wall_ms": wall_ms, "busy_ms": busy_ms, "step_ms": step_ms,
+                          "idle_share": 1.0 - busy_ms / step_ms,
+                          "idle_share_profiled": 1.0 - busy_ms / wall_ms, "top": top,
+                          "events": len(events)}
+        print(f"[train] one step under torch.profiler: {busy_ms:.3f} ms device busy against "
+              f"the unprofiled steps' median {step_ms:.3f} ms (stream clock): idle share "
+              f"{rec['profile']['idle_share']:.4f}; the profiled step's own wall {wall_ms:.3f} "
+              f"ms (idle {rec['profile']['idle_share_profiled']:.4f}), {len(events)} device "
+              f"events; the five with the most device time:", flush=True)
+        for name, n, ms in top:
+            print(f"[train]   {ms:10.3f} ms  x{n:<5d} {name[:100]}", flush=True)
+    t_b2.ckpt.close()
+    del t_b2, faulty, store_b
+
+    # One CodedShardReader shard of 2 x 4,097 tokens through the proxy.
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab, (batch, seq + 1)).astype(np.int32)
+    layout = layout_for_file(tokens.size * 4, K_MAX, R_MAX)
+    shard_store = MemoryStore()
+    proxy = Proxy(shard_store, StaticPolicy(layout.N, layout.K), L=L_THREADS, codec=codec)
+    try:
+        keys = CodedShardReader.write_shards(shard_store, layout, [tokens], "data", codec=codec)
+        reader = CodedShardReader(proxy, layout, keys, tokens_per_shard=tokens.size, prefetch=1)
+        key, got = reader.next_shard(timeout=120)
+        reader.close()
+        reader._thread.join(timeout=120)
+        if key != keys[0] or got.tobytes() != tokens.tobytes():
+            raise AssertionError("[train] the coded shard did not read back byte for byte")
+    finally:
+        proxy.close()
+    print(f"[train] one CodedShardReader shard of {batch} x {seq + 1} tokens "
+          f"({tokens.size * 4:,} B) written through store_coded_object at "
+          f"({layout.N}, {layout.K}) and read back through the proxy byte for byte", flush=True)
+
+    rec["k1_launches"] = gf2_rs_matmul_bytes.launches - k1_start
+    tally.unwrap()  # the codec is the process-wide instance
+    rec["rss_peak_gb"] = _rss_peak_gb()
+    print(f"[train] host: MemTotal {_mem_total_gb():.1f} GB, this process's peak RSS "
+          f"{rec['rss_peak_gb']:.1f} GB", flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1649,6 +2036,18 @@ def main() -> int:
                              "rounds")
     torch.cuda.empty_cache()
 
+    gf2mm.gf2_rs_matmul_bytes.launches = 0
+    train = run_train(device)
+    train_launches = gf2mm.gf2_rs_matmul_bytes.launches
+    need = 4 * train["encode_groups"] + train["restore"]["decode_groups"]
+    print(f"[train] K1 launches on the train path: {train_launches} (4 checkpoints x "
+          f"{train['encode_groups']} encode groups + {train['restore']['decode_groups']} decode "
+          f"groups = {need}, then the shard's write and read)", flush=True)
+    if train_launches < need:
+        raise AssertionError(f"K1 launched {train_launches} times on the train path, expected "
+                             f"at least {need}")
+    torch.cuda.empty_cache()
+
     fleet = run_fleet(device)
     taskq = run_taskq(device, fleet_tofec=fleet["tofec_points"])
     run_mpc()
@@ -1673,7 +2072,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/gf2mm/csrc/gf2_rs_bytes.cu",
         "replaces": "src/repro/kernels/gf2mm/gf2mm.py:154",
         "launches": launches,
-        "launches_by_path": {"main": launches, "serve": serve_launches, "obs": obs_launches},
+        "launches_by_path": {"main": launches, "serve": serve_launches, "obs": obs_launches,
+                             "train": train_launches},
         "byte_equal": k1["byte_equal"],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],

@@ -1,0 +1,8 @@
+from repro_torch.ckpt.checkpoint import (
+    AsyncCheckpointer,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+
+__all__ = ["AsyncCheckpointer", "latest_step", "restore_checkpoint", "save_checkpoint"]

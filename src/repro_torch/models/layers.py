@@ -3,7 +3,9 @@ reference package's ``repro/models/layers.py``.
 
 Conventions:
   * params are nested dicts of tensors; init functions take a
-    ``torch.Generator`` (whose device the weights are made on) and shapes.
+    ``torch.Generator`` and shapes, and make the weights on ``device``
+    (default: the generator's; ``"meta"`` gives shapes without storage,
+    drawn from a CPU generator).
     Init keeps the reference's distributions, not its values: parameters
     that must equal the reference's are carried across through numpy
     (:func:`repro_torch.models.params_from_numpy`).
@@ -37,8 +39,9 @@ def dt(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype):
-    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=gen.device)
+def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype, device=None):
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=device or gen.device)
     return (w * (1.0 / math.sqrt(d_in))).to(dtype)
 
 
@@ -84,17 +87,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig):
+def init_attention(gen: torch.Generator, cfg: ModelConfig, device=None):
     d, hd, dtype = cfg.d_model, cfg.hd, dt(cfg)
     p = {
-        "wq": init_dense(gen, d, cfg.n_heads * hd, dtype),
-        "wk": init_dense(gen, d, cfg.n_kv_heads * hd, dtype),
-        "wv": init_dense(gen, d, cfg.n_kv_heads * hd, dtype),
-        "wo": init_dense(gen, cfg.n_heads * hd, d, dtype),
+        "wq": init_dense(gen, d, cfg.n_heads * hd, dtype, device),
+        "wk": init_dense(gen, d, cfg.n_kv_heads * hd, dtype, device),
+        "wv": init_dense(gen, d, cfg.n_kv_heads * hd, dtype, device),
+        "wo": init_dense(gen, cfg.n_heads * hd, d, dtype, device),
     }
     if cfg.qkv_bias:
         for name, width in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads), ("bv", cfg.n_kv_heads)):
-            p[name] = torch.zeros((width * hd,), dtype=dtype, device=gen.device)
+            p[name] = torch.zeros((width * hd,), dtype=dtype, device=device or gen.device)
     return p
 
 
@@ -124,16 +127,25 @@ def _block_attn(q, k, v, qpos, kpos, scale, softcap, window):
     Returns (o (B,qc,Hkv,G,hd) in v's dtype, row max, row sum), the block's
     terms of the online softmax. Scores are float32 (products of the inputs
     summed in float32, as the reference's ``preferred_element_type``).
+
+    Without autograd (``inference_mode``, ``no_grad``) the score block is
+    scaled, masked and exponentiated in place; with it, out of place, since
+    autograd keeps the scores for the max's and exp's backward. The values
+    are the same either way.
     """
     s = torch.einsum("bqhgd,bkhd->bhgqk", q.to(torch.float32), k.to(torch.float32))
-    s = _softcap(s.mul_(scale), softcap)
     dqk = qpos[:, None] - kpos[None, :]  # (qc, kc)
     mask = (kpos >= 0)[None, :] & (dqk >= 0)  # padded kv positions carry kpos < 0
     if window is not None:
         mask = mask & (dqk < window)
-    s = s.masked_fill_(~mask, MASKED)
-    m = torch.amax(s, dim=-1)  # (B,Hkv,G,qc)
-    p = s.sub_(m[..., None]).exp_()
+    if torch.is_grad_enabled():
+        s = _softcap(s * scale, softcap).masked_fill(~mask, MASKED)
+        m = torch.amax(s, dim=-1)  # (B,Hkv,G,qc)
+        p = torch.exp(s - m[..., None])
+    else:
+        s = _softcap(s.mul_(scale), softcap).masked_fill_(~mask, MASKED)
+        m = torch.amax(s, dim=-1)
+        p = s.sub_(m[..., None]).exp_()
     l = torch.sum(p, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
     return o, m, l
@@ -292,14 +304,14 @@ def fill_cache_from_prefill(k: torch.Tensor, v: torch.Tensor, ck: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig):
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, device=None):
     d_ff = cfg.d_ff
     p = {
-        "wi": init_dense(gen, cfg.d_model, d_ff, dt(cfg)),
-        "wo": init_dense(gen, d_ff, cfg.d_model, dt(cfg)),
+        "wi": init_dense(gen, cfg.d_model, d_ff, dt(cfg), device),
+        "wo": init_dense(gen, d_ff, cfg.d_model, dt(cfg), device),
     }
     if cfg.glu:
-        p["wg"] = init_dense(gen, cfg.d_model, d_ff, dt(cfg))
+        p["wg"] = init_dense(gen, cfg.d_model, d_ff, dt(cfg), device)
     return p
 
 
@@ -323,10 +335,11 @@ def mlp(params, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 
 
-def init_embedding(gen: torch.Generator, cfg: ModelConfig):
+def init_embedding(gen: torch.Generator, cfg: ModelConfig, device=None):
     table = torch.randn((cfg.vocab, cfg.d_model), generator=gen, dtype=torch.float32,
-                        device=gen.device)
-    return {"embed": table.to(dt(cfg)), "head": init_dense(gen, cfg.d_model, cfg.vocab, dt(cfg))}
+                        device=device or gen.device)
+    return {"embed": table.to(dt(cfg)),
+            "head": init_dense(gen, cfg.d_model, cfg.vocab, dt(cfg), device)}
 
 
 def embed(params, cfg: ModelConfig, tokens):
@@ -337,3 +350,10 @@ def embed(params, cfg: ModelConfig, tokens):
 def logits(params, cfg: ModelConfig, x):
     out = x @ params["head"]
     return _softcap(out.to(torch.float32), cfg.logit_softcap)
+
+
+def cross_entropy(logit, labels):
+    """Mean next-token CE. logit: (B,S,V) float32, labels: (B,S) int32."""
+    lse = torch.logsumexp(logit, dim=-1)
+    gold = torch.gather(logit, -1, labels.to(torch.int64)[..., None])[..., 0]
+    return torch.mean(lse - gold)

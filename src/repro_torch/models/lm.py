@@ -1,26 +1,43 @@
-"""Decoder-only LM for the dense family: init, prefill and cached decode.
+"""Decoder-only LM for the dense family: init, training loss, prefill and
+cached decode.
 
 Mirrors the reference package's ``repro/models/lm.py``. The parameters keep
 the reference's stacked layout — ``params["layers"][...]`` leaves carry a
 leading ``n_layers`` axis — so a parameter tree moves between the packages
 as a plain tree map (:func:`repro_torch.models.params_from_numpy`). The
-layer stack is a Python loop that indexes each leaf per layer; per-layer
-attention patterns (gemma2's local/global alternation) are static per layer,
-so a local layer runs only its windowed attention, which gives the values
-the reference selects with ``where`` from both.
+layer stack is a Python loop over the stacked leaves, unbound once per
+forward (so the backward stacks each leaf's gradient once, instead of
+adding one zero-padded full-size gradient per layer). Per-layer attention
+patterns (gemma2's local/global alternation) are static per layer, so a
+local layer runs only its windowed attention, which gives the values the
+reference selects with ``where``/``cond`` from both.
 
-Inference runs under ``torch.inference_mode()``; there is no remat. The
-MoE and VLM branches, ``backbone``, ``train_loss`` and the chunked loss
-wait for ROADMAP item 13.
+Training wraps each block in ``torch.utils.checkpoint`` as the reference
+wraps it in ``jax.checkpoint`` (:func:`_remat`), and the LM head + cross
+entropy run over 512-token chunks, each checkpointed, so one chunk's
+(B, 512, V) float32 logits is live at a time. Inference runs under
+``torch.inference_mode()``. The MoE and VLM families wait for ROADMAP
+item 13.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as ly
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import tree_map
+
+AUX_LOSS_WEIGHT = 0.01
+LOSS_CHUNK = 512
 
 
 def _require_dense(cfg: ModelConfig) -> None:
@@ -43,15 +60,11 @@ def _layer_windows(cfg: ModelConfig) -> list[int]:
     return out
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _layer(stacked, i: int):
-    """Layer ``i``'s parameters: a view of every stacked leaf."""
-    return _tree_map(lambda t: t[i], stacked)
+def _unstack(stacked, n: int) -> list:
+    """The per-layer parameter trees of a stacked tree: each leaf unbound
+    once along its layer axis."""
+    parts = tree_map(torch.unbind, stacked)
+    return [tree_map(lambda t, i=i: t[i], parts) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -59,26 +72,30 @@ def _layer(stacked, i: int):
 # ---------------------------------------------------------------------------
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig):
+def init_block(gen: torch.Generator, cfg: ModelConfig, device):
     dtype = ly.dt(cfg)
     return {
-        "ln1": ly.init_rmsnorm(cfg.d_model, dtype, gen.device),
-        "attn": ly.init_attention(gen, cfg),
-        "ln2": ly.init_rmsnorm(cfg.d_model, dtype, gen.device),
-        "mlp": ly.init_mlp(gen, cfg),
+        "ln1": ly.init_rmsnorm(cfg.d_model, dtype, device),
+        "attn": ly.init_attention(gen, cfg, device),
+        "ln2": ly.init_rmsnorm(cfg.d_model, dtype, device),
+        "mlp": ly.init_mlp(gen, cfg, device),
     }
 
 
 def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None):
-    """Random parameters from ``generator`` (default: seed 0 on ``device``,
-    which defaults to the card)."""
+    """Random parameters from ``generator`` on its device; without one, from
+    seed 0 on ``device`` (default: the card), where ``"meta"`` gives the
+    parameters' shapes and dtypes without allocating them."""
     _require_dense(cfg)
     if generator is None:
-        generator = torch.Generator(device=resolve_device(device)).manual_seed(0)
+        dev = resolve_device(device)
+        generator = torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(0)
+    else:
+        dev = generator.device
     return {
-        "embedding": ly.init_embedding(generator, cfg),
-        "layers": _stack([init_block(generator, cfg) for _ in range(cfg.n_layers)]),
-        "ln_f": ly.init_rmsnorm(cfg.d_model, ly.dt(cfg), generator.device),
+        "embedding": ly.init_embedding(generator, cfg, dev),
+        "layers": _stack([init_block(generator, cfg, dev) for _ in range(cfg.n_layers)]),
+        "ln_f": ly.init_rmsnorm(cfg.d_model, ly.dt(cfg), dev),
     }
 
 
@@ -87,6 +104,90 @@ def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
+
+
+# ---------------------------------------------------------------------------
+# forward + training loss
+# ---------------------------------------------------------------------------
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the products without batch dimensions
+    (``x @ w`` lowers to ``mm``/``addmm``; attention's batched ``bmm`` is
+    recomputed), as ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under the config's remat policy, the reference's
+    ``jax.checkpoint(fn, policy=_remat_policy(cfg))``: ``"nothing"`` saves
+    only the inputs and recomputes the rest in the backward, ``"full"``
+    saves everything (no checkpoint), ``"dots"`` saves the matmuls."""
+    if cfg.remat_policy == "full":
+        return fn
+    if cfg.remat_policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_matmuls))
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def _block_apply(cfg: ModelConfig, window: int, p, x):
+    """One transformer block; ``window`` 0 = full causal attention."""
+    h = ly.rmsnorm(p["ln1"], x)
+    x = x + ly.attention(p["attn"], cfg, h, window=window or None)[0]
+    h = ly.rmsnorm(p["ln2"], x)
+    return x + ly.mlp(p["mlp"], cfg, h)
+
+
+def backbone(params, cfg: ModelConfig, x):
+    """(B, S, d) → ((B, S, d), aux loss) through the layer stack, each block
+    under :func:`_remat`. The dense family has no auxiliary loss (float32
+    zero, as the reference's)."""
+    _require_dense(cfg)
+    for p, window in zip(_unstack(params["layers"], cfg.n_layers), _layer_windows(cfg)):
+        x = _remat(cfg, functools.partial(_block_apply, cfg, window))(p, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return ly.rmsnorm(params["ln_f"], x), aux
+
+
+def _inputs_to_embeddings(params, cfg: ModelConfig, batch):
+    """tokens → (B, S, d)."""
+    return ly.embed(params["embedding"], cfg, batch["tokens"])
+
+
+def _chunk_ce_sum(cfg: ModelConfig, params, xc, lc):
+    lg = ly.logits(params, cfg, xc)  # (B, c, V) float32
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, lc.to(torch.int64)[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def chunked_ce_loss(params, cfg: ModelConfig, x, labels):
+    """The LM head + CE over ``LOSS_CHUNK``-token chunks, each recomputed in
+    the backward; the chunks' float32 sums are added in order and divided by
+    B·S (mean CE)."""
+    B, S, _ = x.shape
+    c = min(LOSS_CHUNK, S)
+    assert S % c == 0
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    body = functools.partial(checkpoint, functools.partial(_chunk_ce_sum, cfg),
+                             use_reentrant=False)
+    for i in range(S // c):
+        chunk = slice(i * c, (i + 1) * c)
+        tot = tot + body(params["embedding"], x[:, chunk], labels[:, chunk])
+    return tot / (B * S)
+
+
+def train_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Mean CE against pre-aligned next-token labels (+ the auxiliary loss)."""
+    _require_dense(cfg)
+    x = _inputs_to_embeddings(params, cfg, batch)
+    x, aux = backbone(params, cfg, x)
+    loss = chunked_ce_loss(params, cfg, x[:, -batch["tokens"].shape[1]:], batch["labels"])
+    return loss + AUX_LOSS_WEIGHT * aux
 
 
 # ---------------------------------------------------------------------------
@@ -122,8 +223,8 @@ def decode_step(params, cfg: ModelConfig, token, cache):
     _require_dense(cfg)
     x = ly.embed(params["embedding"], cfg, token)
     pos = cache["pos"]
-    for i, window in enumerate(_layer_windows(cfg)):
-        p = _layer(params["layers"], i)
+    layers = _unstack(params["layers"], cfg.n_layers)
+    for i, (p, window) in enumerate(zip(layers, _layer_windows(cfg))):
         h = ly.rmsnorm(p["ln1"], x)
         x = x + ly.decode_attention(
             p["attn"], cfg, h, cache["k"][i], cache["v"][i], cache["slot_pos"][i], pos,
@@ -144,8 +245,8 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int | None = None):
     B, S, _ = x.shape
     max_seq = max_seq or S
     cache = init_cache(cfg, B, max_seq, device=x.device)
-    for i, window in enumerate(_layer_windows(cfg)):
-        p = _layer(params["layers"], i)
+    layers = _unstack(params["layers"], cfg.n_layers)
+    for i, (p, window) in enumerate(zip(layers, _layer_windows(cfg))):
         attn, k, v = ly.attention(p["attn"], cfg, ly.rmsnorm(p["ln1"], x),
                                   window=window or None)
         x = x + attn

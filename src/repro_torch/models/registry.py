@@ -2,7 +2,8 @@
 
 Mirrors the reference package's ``repro/models/registry.py`` for the dense
 family (the others wait for ROADMAP item 13). Every entry exposes
-``init(generator, device)``, ``prefill(params, batch, max_seq)``,
+``init(generator, device)``, ``train_loss(params, batch)``,
+``prefill(params, batch, max_seq)``,
 ``decode_step(params, token, cache)``, ``init_cache(B, max_seq, device)``
 and ``prefill_tokens(params, tokens, max_seq)``, plus batch builders for
 tests and examples and :func:`params_from_numpy`, which carries the
@@ -20,6 +21,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import layers, lm
 from repro_torch.models.config import ModelConfig, ShapeSpec
+from repro_torch.tree import tree_map
 
 _FAMILY_MODULES = {"dense": lm}
 
@@ -35,8 +37,12 @@ class Arch:
 
     def init(self, generator: torch.Generator | None = None, device=None):
         """Random parameters from ``generator`` (its device), or from seed 0 on
-        ``device`` (default: the card)."""
+        ``device`` (default: the card; ``"meta"`` gives shapes without
+        storage)."""
         return self.module.init(self.cfg, generator=generator, device=device)
+
+    def train_loss(self, params, batch):
+        return self.module.train_loss(params, self.cfg, batch)
 
     def prefill(self, params, batch, max_seq=None):
         return self.module.prefill(params, self.cfg, batch, max_seq)
@@ -108,4 +114,4 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
         t = torch.from_numpy(a).to(dev)
         return t.to(dtype) if t.is_floating_point() else t
 
-    return lm._tree_map(leaf, tree)
+    return tree_map(leaf, tree)

@@ -29,6 +29,9 @@ print("SLICE", sorted(m for m in sys.modules
 print("LM", sorted(m for m in sys.modules
                   if m.startswith(("repro_torch.models", "repro_torch.configs"))))
 print("OBS", sorted(m for m in sys.modules if m.startswith("repro_torch.obs")))
+print("TRAIN", sorted(m for m in sys.modules
+                     if m.startswith(("repro_torch.train", "repro_torch.ckpt", "repro_torch.data",
+                                      "repro_torch.tree"))))
 print("BAD", bad)
 """
 
@@ -49,6 +52,10 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert lines["OBS"] == str([f"repro_torch.obs{mod}" for mod in (
         "", ".compile", ".dashboard", ".flight", ".meta", ".metrics", ".profile", ".slo",
         ".state", ".timeline", ".trace")])
+    assert lines["TRAIN"] == str(sorted([
+        "repro_torch.ckpt", "repro_torch.ckpt.checkpoint", "repro_torch.data",
+        "repro_torch.data.pipeline", "repro_torch.train", "repro_torch.train.optimizer",
+        "repro_torch.train.train_step", "repro_torch.train.trainer", "repro_torch.tree"]))
     assert lines["BAD"] == "[]", lines["BAD"]
 
 
