@@ -98,6 +98,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    torch.profiler, and one ``CodedShardReader`` shard of 2 × 4,097 tokens
    written and read back through the proxy; K1's launches on the path
    must cover every encode and decode group.
+13. families — run right after phase 12: the moe, vlm and encdec families
+   at their published widths through the same entry points. mixtral-8x7b
+   cut to 8 layers (11.87 B seeded parameters, 23.74 GB; 32 do not fit the
+   card) and pixtral-12b whole (40 layers, 24.55 GB, the reference's zero
+   1,024-patch prefix in front of every prompt) each served through the
+   closed loop, 3 rounds of 8 keys with 1,024-token prompts and 16
+   generated tokens, and whisper-base whole, 3 rounds of 32 with 432-token
+   prompts (its decoder's 448-token context), each checked as phase 6
+   checks its rounds and profiled as it is; mixtral's decode-vs-prefill
+   continuation at the reference's 0.08; mixtral cut to 2 layers trained 3
+   AdamW steps at seq 4,096 × batch 1 with capacity routing (losses and
+   aux loss finite, the aux loss near 1 a layer at init; no checkpoint);
+   whisper-base trained at seq 448 × batch 16 through phase 12's protocol
+   (checkpoints at (8, 4), a restart from 6 of 8 strips per leaf, the
+   final loss equal to the straight run's to rel = 1e-4). K1's launches on
+   the path must cover every round and every whisper encode and decode
+   group.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``. Without a card it
@@ -1084,13 +1101,28 @@ SERVE_MODEL, SERVE_OBJECTS, SERVE_ROUNDS, SERVE_BATCH = "qwen1.5-0.5b", 128, 4, 
 SERVE_PROMPT, SERVE_STEPS = 1024, 32
 
 
-def run_serve(device, *, smoke: bool = False, n_objects: int = SERVE_OBJECTS,
+def cut(arch, layers: int | None):
+    """``arch`` with its depth cut to ``layers`` (as it is for None)."""
+    if layers is None:
+        return arch
+    import dataclasses
+
+    from repro_torch.models.registry import Arch
+
+    return Arch(cfg=dataclasses.replace(arch.cfg, n_layers=layers), module=arch.module)
+
+
+def run_serve(device, *, smoke: bool = False, model: str = SERVE_MODEL,
+              layers: int | None = None, n_objects: int = SERVE_OBJECTS,
               rounds: int = SERVE_ROUNDS, per_round: int = SERVE_BATCH,
               prompt_len: int = SERVE_PROMPT, steps: int = SERVE_STEPS,
-              file_bytes: int = FILE_BYTES, seed: int = 0, obs_rounds: int = 0) -> dict:
+              max_seq: int | None = None, file_bytes: int = FILE_BYTES, seed: int = 0,
+              obs_rounds: int = 0, tag: str = "[serve]") -> dict:
     """The closed loop through ``ClosedLoopServer`` at the proxy path's
-    deployment, with ``SERVE_MODEL`` (its smoke config with ``smoke``) on
-    seeded random weights.
+    deployment, with ``model`` (its smoke config with ``smoke``; its depth
+    cut to ``layers`` if given) on seeded random weights, the KV cache sized
+    for ``max_seq`` positions (default ``prompt_len + steps``), every line
+    printed under ``tag``.
 
     Each object's first ``prompt_len`` int32 words are seeded token ids, the
     rest seeded bytes; objects are written through the proxy, then each
@@ -1115,22 +1147,22 @@ def run_serve(device, *, smoke: bool = False, n_objects: int = SERVE_OBJECTS,
     from repro_torch.models import get
     from repro_torch.serve import ClosedLoopServer, FusedServingStep, ServePolicy, ServingEngine
     from repro_torch.storage import LatencyStore, MemoryStore, Proxy
+    from repro_torch.tree import tree_leaves
 
-    arch = get(SERVE_MODEL, smoke=smoke)
+    arch = cut(get(model, smoke=smoke), layers)
     cfg = arch.cfg
     t0 = time.monotonic()
     params = arch.init(torch.Generator(device=device).manual_seed(seed))
     _sync(device)
-    leaves = [t for grp in (params["embedding"], params["ln_f"]) for t in grp.values()]
-    leaves += [t for sub in params["layers"].values() for t in sub.values()]
+    leaves = tree_leaves(params)
     n_params = sum(t.numel() for t in leaves)
     param_bytes = sum(t.numel() * t.element_size() for t in leaves)
-    max_seq = prompt_len + steps
-    kv_bytes = (2 * cfg.n_layers * per_round * max_seq * cfg.n_kv_heads * cfg.hd
-                * leaves[0].element_size())
+    max_seq = max_seq or prompt_len + steps
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(arch.init_cache(per_round, max_seq, device="meta")))
     rec: dict = {"model": cfg.name, "n_params": n_params, "param_bytes": param_bytes,
                  "kv_cache_bytes": kv_bytes, "init_s": time.monotonic() - t0, "rounds": []}
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+    print(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
           f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}; {n_params:,} parameters "
           f"({param_bytes / 1e9:.3f} GB) from seed {seed} in {rec['init_s']:.3f} s; KV cache "
           f"{per_round} x {max_seq} = {kv_bytes / 1e9:.3f} GB", flush=True)
@@ -1154,7 +1186,7 @@ def run_serve(device, *, smoke: bool = False, n_objects: int = SERVE_OBJECTS,
             raise AssertionError("a proxy write failed")
         proxy.flush_writes(timeout=600)
         rec["write_s"] = time.monotonic() - t0
-        print(f"[serve] wrote {n_objects} x {file_bytes} B (prompts of {prompt_len} tokens) "
+        print(f"{tag} wrote {n_objects} x {file_bytes} B (prompts of {prompt_len} tokens) "
               f"through the proxy in {rec['write_s']:.3f} s", flush=True)
 
         engine = ServingEngine(arch, params, max_seq=max_seq)
@@ -1163,7 +1195,7 @@ def run_serve(device, *, smoke: bool = False, n_objects: int = SERVE_OBJECTS,
         host = TOFECPolicy.for_classes([cls_], L_THREADS)
 
         def serve(r: int, ids: list[int], around=contextlib.nullcontext(), srv=server,
-                  tag: str = "[serve]") -> dict:
+                  tag: str = tag) -> dict:
             """Round ``r`` of ``srv`` over objects ``ids`` (the round alone
             inside ``around``), checked."""
             keys = [f"lm/{i}" for i in ids]
@@ -1213,7 +1245,7 @@ def run_serve(device, *, smoke: bool = False, n_objects: int = SERVE_OBJECTS,
             rec["rounds"].append(serve(r, list(range(r * per_round, (r + 1) * per_round))))
         if device.type == "cuda":
             rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
-            print(f"[serve] peak device memory over the rounds: "
+            print(f"{tag} peak device memory over the rounds: "
                   f"{rec['peak_mem_bytes'] / 1e9:.3f} GB", flush=True)
         if server.traces != 1:
             raise AssertionError(f"{server.traces} shape buckets for {rounds} rounds, want 1")
@@ -1232,12 +1264,12 @@ def run_serve(device, *, smoke: bool = False, n_objects: int = SERVE_OBJECTS,
         if not (back.ok and back.data == payload):
             raise AssertionError("the write after the loop did not read back byte for byte")
         rec["put_code"] = list(write_policy.code)
-        print(f"[serve] write after the loop coded {write_policy.code} (the fed-back pick), "
+        print(f"{tag} write after the loop coded {write_policy.code} (the fed-back pick), "
               f"read back byte for byte, {rec['put_ms']:.3f} ms; {server.traces} shape bucket "
               f"for {rounds} rounds", flush=True)
         if device.type == "cuda":
             rec["profile"] = profile_serve_round(serve, engine, prompts, list(range(per_round)),
-                                                 rec["rounds"][1:], steps)
+                                                 rec["rounds"][1:], steps, tag=tag)
         rec["k1_launches"] = gf2_rs_matmul_bytes.launches
         if obs_rounds:
             rec["obs"] = serve_collected(
@@ -1369,7 +1401,7 @@ def _stream_and_device_ms(fn) -> tuple[float, float, list]:
 
 
 def profile_serve_round(serve, engine, prompts, ids: list[int], warm: list[dict],
-                        steps: int) -> dict:
+                        steps: int, *, tag: str = "[serve]") -> dict:
     """One more closed-loop round (``serve(r, ids, around)``, checked as the
     others) with ``serve_round`` alone under torch.profiler: its device busy
     time, its idle share against the unprofiled warm rounds' mean wall
@@ -1395,15 +1427,15 @@ def profile_serve_round(serve, engine, prompts, ids: list[int], warm: list[dict]
            "device_idle_share_profiled": 1.0 - busy_ms / rnd["wall_ms"],
            "device_events": len(events), "copies": copies, "top": _device_top(events, 10),
            "round": rnd}
-    print(f"[serve] profiled round ({len(ids)} prompts, serve_round alone): {busy_ms:.3f} ms "
+    print(f"{tag} profiled round ({len(ids)} prompts, serve_round alone): {busy_ms:.3f} ms "
           f"device busy, {len(events)} device events; idle share "
           f"{rec['device_idle_share']:.4f} of the unprofiled warm rounds' mean wall "
           f"{warm_ms:.3f} ms ({rec['device_idle_share_profiled']:.4f} of this round's "
           f"{rnd['wall_ms']:.3f} ms, stretched by the profiler)", flush=True)
     for name, (count, ms) in sorted(copies.items()):
-        print(f"[serve]   copy {ms:10.4f} ms  x{count:<5d} {name}", flush=True)
+        print(f"{tag}   copy {ms:10.4f} ms  x{count:<5d} {name}", flush=True)
     for name, count, ms in rec["top"]:
-        print(f"[serve]   {ms:10.4f} ms  x{count:<6d} {name[:140]}", flush=True)
+        print(f"{tag}   {ms:10.4f} ms  x{count:<6d} {name[:140]}", flush=True)
 
     arch, params = engine.arch, engine.params
     toks = torch.from_numpy(prompts[ids]).to(params["embedding"]["embed"].device)
@@ -1422,14 +1454,14 @@ def profile_serve_round(serve, engine, prompts, ids: list[int], warm: list[dict]
                           "device_events": len(dec_events) / n_dec,
                           "top": _device_top(dec_events, 6)}
     d = rec["decode_step"]
-    print(f"[serve] prefill alone: {pre_ms:.3f} ms on the stream clock, {pre_busy:.3f} ms "
+    print(f"{tag} prefill alone: {pre_ms:.3f} ms on the stream clock, {pre_busy:.3f} ms "
           f"device busy (profiled)", flush=True)
-    print(f"[serve] decode alone, {n_dec} steps: {d['stream_ms']:.3f} ms a step on the stream "
+    print(f"{tag} decode alone, {n_dec} steps: {d['stream_ms']:.3f} ms a step on the stream "
           f"clock, {d['device_busy_ms']:.3f} ms device busy a step (profiled; the step's cache "
           f"clone included once in the {n_dec}), device share {d['device_share']:.4f}, "
           f"{d['device_events']:.1f} device events a step", flush=True)
     for name, count, ms in d["top"]:
-        print(f"[serve]   decode {ms / n_dec:9.4f} ms a step  x{count / n_dec:<6.1f} "
+        print(f"{tag}   decode {ms / n_dec:9.4f} ms a step  x{count / n_dec:<6.1f} "
               f"{name[:140]}", flush=True)
     return rec
 
@@ -1726,10 +1758,11 @@ def _mem_total_gb() -> float:
     raise RuntimeError("no MemTotal in /proc/meminfo")
 
 
-def run_train(device, *, smoke: bool = False, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
-              seed: int = 0) -> dict:
-    """The training path through ``Trainer`` with ``SERVE_MODEL`` (its smoke
-    config with ``smoke``) on seeded random weights, erasure-coded
+def run_train(device, *, smoke: bool = False, model: str = SERVE_MODEL, seq: int = TRAIN_SEQ,
+              batch: int = TRAIN_BATCH, seed: int = 0, tag: str = "[train]") -> dict:
+    """The training path through ``Trainer`` with ``model`` (its smoke
+    config with ``smoke``) on seeded random weights, every line printed
+    under ``tag``, erasure-coded
     checkpoints through ``AsyncCheckpointer`` (K1 encode on a card) and a
     restart from 6 of 8 strips (K1 decode).
 
@@ -1760,7 +1793,7 @@ def run_train(device, *, smoke: bool = False, seq: int = TRAIN_SEQ, batch: int =
     from repro_torch.train import Trainer, TrainerConfig
     from repro_torch.tree import tree_flatten
 
-    arch = get(SERVE_MODEL, smoke=smoke)
+    arch = get(model, smoke=smoke)
     cfg = arch.cfg
     shape = ShapeSpec("train_4k_cut", "train", seq=seq, batch=batch)
     tc = TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY, log_every=1,
@@ -1780,7 +1813,7 @@ def run_train(device, *, smoke: bool = False, seq: int = TRAIN_SEQ, batch: int =
         tally.wrap(s, "get", lambda args, out: len(out))
         return s
 
-    def instrument(t, tag: str, steps: list) -> None:
+    def instrument(t, run_tag: str, steps: list) -> None:
         """Step times on the stream clock and the snapshot's host time."""
         step_fn, submit = t.step_fn, t.ckpt.submit
 
@@ -1793,16 +1826,16 @@ def run_train(device, *, smoke: bool = False, seq: int = TRAIN_SEQ, batch: int =
         def snap(step_no, tree):
             t0 = time.monotonic()
             submit(step_no, tree)
-            snaps.append((tag, step_no, time.monotonic() - t0))
+            snaps.append((run_tag, step_no, time.monotonic() - t0))
 
         t.step_fn, t.ckpt.submit = step, snap
 
     snaps: list = []
     rec: dict = {"model": cfg.name, "seq": seq, "batch": batch, "runs": {}}
 
-    def train(tag: str, t, steps: int | None) -> list[dict]:
+    def train(run_tag: str, t, steps: int | None) -> list[dict]:
         stops: list = []
-        instrument(t, tag, stops)
+        instrument(t, run_tag, stops)
         tally.take()
         k1_before = gf2_rs_matmul_bytes.launches
         t0 = time.monotonic()
@@ -1814,20 +1847,20 @@ def run_train(device, *, smoke: bool = False, seq: int = TRAIN_SEQ, batch: int =
             r["ms"] = step_ms
             r["tok_per_s"] = batch * seq / (step_ms / 1e3)
             if not np.isfinite(r["loss"]) or not np.isfinite(r["grad_norm"]):
-                raise AssertionError(f"[train] {tag}: step {r['step']} loss {r['loss']}")
-            print(f"[train] {tag} step {r['step']}: {step_ms:.3f} ms ({clock_name} clock), "
+                raise AssertionError(f"{tag} {run_tag}: step {r['step']} loss {r['loss']}")
+            print(f"{tag} {run_tag} step {r['step']}: {step_ms:.3f} ms ({clock_name} clock), "
                   f"{r['tok_per_s']:.0f} tokens/s, loss {r['loss']:.6f}, grad norm "
                   f"{r['grad_norm']:.6f}", flush=True)
-        ck = [s for s in snaps if s[0] == tag]
+        ck = [s for s in snaps if s[0] == run_tag]
         run = {"log": log, "wall_s": wall, "save": save, "snapshot_s": [s[2] for s in ck],
                "k1_launches": gf2_rs_matmul_bytes.launches - k1_before}
-        print(f"[train] {tag}: {len(log)} steps in {wall:.3f} s wall; {len(ck)} checkpoint(s) "
+        print(f"{tag} {run_tag}: {len(log)} steps in {wall:.3f} s wall; {len(ck)} checkpoint(s) "
               f"at steps {[s[1] for s in ck]}: host snapshot {sum(run['snapshot_s']):.3f} s, "
               f"encode {save['s'].get('encode_blobs', 0):.3f} s ({save['n'].get('encode_blobs', 0)} "
               f"calls; K1 {save['k1_ms']:.3f} ms stream, {run['k1_launches']} launches), store "
               f"puts {save['s'].get('put', 0):.3f} s for {save['bytes'].get('put', 0) / 1e9:.3f} GB "
               f"in {save['n'].get('put', 0)} objects", flush=True)
-        rec["runs"][tag] = run
+        rec["runs"][run_tag] = run
         return log
 
     def manifest(s, prefix: str, step: int) -> dict:
@@ -1838,14 +1871,14 @@ def run_train(device, *, smoke: bool = False, seq: int = TRAIN_SEQ, batch: int =
     store_a = store()
     t_a = Trainer(arch, shape, store_a, cfg=tc, ckpt_prefix="a", device=device)
     n_params = sum(t.numel() for _, t in tree_flatten(t_a.params))
-    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params:,} "
+    print(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params:,} "
           f"parameters ({cfg.dtype}) from seed {seed}; seq {seq} x batch {batch} = "
           f"{seq * batch} tokens a step; remat {cfg.remat_policy}, AdamW defaults; host "
           f"MemTotal {_mem_total_gb():.1f} GB", flush=True)
     log_a = train("A", t_a, None)
     if device.type == "cuda":
         rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
-        print(f"[train] peak device memory over run A: {rec['peak_mem_bytes'] / 1e9:.3f} GB",
+        print(f"{tag} peak device memory over run A: {rec['peak_mem_bytes'] / 1e9:.3f} GB",
               flush=True)
     man = manifest(store_a, "a", TRAIN_STEPS)
     leaves = man["leaves"]
@@ -1853,7 +1886,7 @@ def run_train(device, *, smoke: bool = False, seq: int = TRAIN_SEQ, batch: int =
     groups = {(m["n"], m["k"], pow2_bucket(m["strip_bytes"], 128)) for m in leaves.values()}
     rec.update(n_params=n_params, leaves=len(leaves), payload_bytes=payload,
                encode_groups=len(groups))
-    print(f"[train] one checkpoint: {len(leaves)} leaves, {payload / 1e9:.3f} GB of payload, "
+    print(f"{tag} one checkpoint: {len(leaves)} leaves, {payload / 1e9:.3f} GB of payload, "
           f"{sum(m['n'] * m['strip_bytes'] for m in leaves.values()) / 1e9:.3f} GB of strips at "
           f"(n, k) {sorted({(m['n'], m['k']) for m in leaves.values()})}, {len(groups)} encode "
           f"groups (one K1 launch each)", flush=True)
@@ -1866,7 +1899,7 @@ def run_train(device, *, smoke: bool = False, seq: int = TRAIN_SEQ, batch: int =
         crc_s += time.monotonic() - t0
         del host
     rec["crc_s"] = crc_s
-    print(f"[train] crc32 of one checkpoint's {payload / 1e9:.3f} GB, timed apart on the same "
+    print(f"{tag} crc32 of one checkpoint's {payload / 1e9:.3f} GB, timed apart on the same "
           f"bytes: {crc_s:.3f} s (host)", flush=True)
     t_a.ckpt.close()
     final_a = log_a[-1]["loss"]
@@ -1878,7 +1911,7 @@ def run_train(device, *, smoke: bool = False, seq: int = TRAIN_SEQ, batch: int =
     t_b.ckpt.close()
     del t_b
     if latest_step(store_b, "b") != TRAIN_CKPT_EVERY:
-        raise AssertionError(f"[train] B's latest checkpoint is {latest_step(store_b, 'b')}")
+        raise AssertionError(f"{tag} B's latest checkpoint is {latest_step(store_b, 'b')}")
     faulty = FaultyStore(store_b)
     lost = [key for key in store_b.keys() if key.endswith(TRAIN_LOST)]
     for key in lost:
@@ -1893,14 +1926,14 @@ def run_train(device, *, smoke: bool = False, seq: int = TRAIN_SEQ, batch: int =
     restore_s = time.monotonic() - t0
     res = tally.take()
     if t_b2.start_step != TRAIN_CKPT_EVERY:
-        raise AssertionError(f"[train] the restart starts at {t_b2.start_step}")
+        raise AssertionError(f"{tag} the restart starts at {t_b2.start_step}")
     rec["restore"] = {"wall_s": restore_s, "fetch_s": res["s"].get("get", 0.0),
                       "fetched_bytes": res["bytes"].get("get", 0),
                       "decode_s": res["s"].get("decode", 0.0), "k1_ms": res["k1_ms"],
                       "k1_launches": gf2_rs_matmul_bytes.launches - k1_before,
                       "decode_groups": len(dec_groups), "lost_objects": len(lost)}
     r = rec["restore"]
-    print(f"[train] restart from store B with {len(lost)} strips lost (strips 0 and 2 of "
+    print(f"{tag} restart from store B with {len(lost)} strips lost (strips 0 and 2 of "
           f"every leaf): start_step {t_b2.start_step}, every crc held; restore {restore_s:.3f} "
           f"s wall: fetch {r['fetch_s']:.3f} s ({r['fetched_bytes'] / 1e9:.3f} GB), decode "
           f"{r['decode_s']:.3f} s (K1 {r['k1_ms']:.3f} ms stream, {r['k1_launches']} launches "
@@ -1910,10 +1943,10 @@ def run_train(device, *, smoke: bool = False, seq: int = TRAIN_SEQ, batch: int =
     final_b = log_b[-1]["loss"]
     rel = abs(final_b - final_a) / abs(final_a)
     rec.update(final_a=final_a, final_b=final_b, rel_diff=rel)
-    print(f"[train] final loss: straight {final_a!r}, restarted {final_b!r}, relative "
+    print(f"{tag} final loss: straight {final_a!r}, restarted {final_b!r}, relative "
           f"difference {rel:.3e} (bar 1e-4)", flush=True)
     if log_b[-1]["step"] != TRAIN_STEPS or not rel <= 1e-4:
-        raise AssertionError(f"[train] the restarted run ends at step {log_b[-1]['step']} with "
+        raise AssertionError(f"{tag} the restarted run ends at step {log_b[-1]['step']} with "
                              f"loss {final_b}, the straight run's is {final_a}")
 
     if device.type == "cuda":
@@ -1937,13 +1970,13 @@ def run_train(device, *, smoke: bool = False, seq: int = TRAIN_SEQ, batch: int =
                           "idle_share": 1.0 - busy_ms / step_ms,
                           "idle_share_profiled": 1.0 - busy_ms / wall_ms, "top": top,
                           "events": len(events)}
-        print(f"[train] one step under torch.profiler: {busy_ms:.3f} ms device busy against "
+        print(f"{tag} one step under torch.profiler: {busy_ms:.3f} ms device busy against "
               f"the unprofiled steps' median {step_ms:.3f} ms (stream clock): idle share "
               f"{rec['profile']['idle_share']:.4f}; the profiled step's own wall {wall_ms:.3f} "
               f"ms (idle {rec['profile']['idle_share_profiled']:.4f}), {len(events)} device "
               f"events; the five with the most device time:", flush=True)
         for name, n, ms in top:
-            print(f"[train]   {ms:10.3f} ms  x{n:<5d} {name[:100]}", flush=True)
+            print(f"{tag}   {ms:10.3f} ms  x{n:<5d} {name[:100]}", flush=True)
     t_b2.ckpt.close()
     del t_b2, faulty, store_b
 
@@ -1959,18 +1992,193 @@ def run_train(device, *, smoke: bool = False, seq: int = TRAIN_SEQ, batch: int =
         reader.close()
         reader._thread.join(timeout=120)
         if key != keys[0] or got.tobytes() != tokens.tobytes():
-            raise AssertionError("[train] the coded shard did not read back byte for byte")
+            raise AssertionError(f"{tag} the coded shard did not read back byte for byte")
     finally:
         proxy.close()
-    print(f"[train] one CodedShardReader shard of {batch} x {seq + 1} tokens "
+    print(f"{tag} one CodedShardReader shard of {batch} x {seq + 1} tokens "
           f"({tokens.size * 4:,} B) written through store_coded_object at "
           f"({layout.N}, {layout.K}) and read back through the proxy byte for byte", flush=True)
 
     rec["k1_launches"] = gf2_rs_matmul_bytes.launches - k1_start
     tally.unwrap()  # the codec is the process-wide instance
     rec["rss_peak_gb"] = _rss_peak_gb()
-    print(f"[train] host: MemTotal {_mem_total_gb():.1f} GB, this process's peak RSS "
+    print(f"{tag} host: MemTotal {_mem_total_gb():.1f} GB, this process's peak RSS "
           f"{rec['rss_peak_gb']:.1f} GB", flush=True)
+    return rec
+
+
+#: The ``[families]`` phase: the moe, vlm and encdec families at their
+#: published widths, only depth and traffic cut (PERF.md §4). Serving runs,
+#: each (model, layers (None: all), rows a round, prompt tokens, max_seq):
+#: mixtral-8x7b cut from 32 layers to 8 (93 GB in bfloat16 does not fit the
+#: card), pixtral-12b whole with 1,024 prompt tokens behind its 1,024-patch
+#: zero prefix, whisper-base whole at its decoder's 448-token context.
+FAMILY_SERVES = (("mixtral-8x7b", 8, 8, 1024, 1024 + 16),
+                 ("pixtral-12b", None, 8, 1024, 1024 + 1024 + 16),
+                 ("whisper-base", None, 32, 432, 432 + 16))
+FAMILY_ROUNDS, FAMILY_STEPS = 3, 16
+#: mixtral-8x7b trained at 2 layers, seq 4,096 x batch 1 (``train_4k``'s
+#: length), capacity routing at its cf 1.25, no checkpoint (its state would
+#: be 31.6 GB of payload); whisper-base through ``run_train`` whole, at its
+#: 448-token context x batch 16.
+MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2, 4096, 3
+WHISPER_TRAIN_SEQ, WHISPER_TRAIN_BATCH = 448, 16
+
+
+def _empty_cache(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def check_continuation(device, model: str, layers: int | None) -> float:
+    """The reference's teacher-forcing check on the card: decoding token S
+    after a prefill of 2 x S = 64 tokens (seeded weights and tokens, seed
+    0) gives the prefill of S + 1 tokens' last logits to the reference's
+    0.08 (atol and rtol). Returns the largest difference."""
+    import torch
+
+    from repro_torch.models import get
+
+    B, S, tol = 2, 64, 0.08
+    tag = f"[families] {model.split('-')[0]} serve"
+    arch = cut(get(model), layers)
+    params = arch.init(torch.Generator(device=device).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, arch.cfg.vocab, (B, S + 1)).astype(np.int32)).to(device)
+    _, cache = arch.prefill_tokens(params, toks[:, :S], max_seq=S + 4)
+    step, _ = arch.decode_step(params, toks[:, S:S + 1], cache)
+    full, _ = arch.prefill_tokens(params, toks, max_seq=S + 4)
+    err = (step - full).abs()
+    worst = float(err.max())
+    print(f"{tag} decode after a prefill of {B} x {S} against the prefill of {S + 1}: max "
+          f"|diff| {worst:.5f}, logits up to {float(full.abs().max()):.3f} (bar {tol} + "
+          f"{tol} x |logit|)", flush=True)
+    if not bool(torch.isfinite(step).all()) or bool((err > tol + tol * full.abs()).any()):
+        raise AssertionError(f"{tag} decode-vs-prefill continuation off by {worst}")
+    return worst
+
+
+def run_moe_train(device, *, smoke: bool = False, seq: int = MOE_TRAIN_SEQ) -> dict:
+    """mixtral-8x7b (its smoke config with ``smoke``) cut to
+    :data:`MOE_TRAIN_LAYERS`, trained :data:`MOE_TRAIN_STEPS` AdamW steps at
+    seq × batch 1 with capacity routing (``make_train_step``, weights and
+    ``SyntheticTokens`` from seed 0), no
+    checkpoint. The aux loss of the first batch is computed before the
+    first step, a layer's near 1 at init. Raises if a loss, a grad norm or
+    the aux loss is not finite, or the aux loss is not within [0.8, 1.5] a
+    layer. Prints each step's stream ms and tokens/s, peak device memory
+    and, on a card, one more step under torch.profiler with its top
+    kernels."""
+    import torch
+
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import get, lm
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train import init_opt_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    tag, steps = "[families] mixtral train", MOE_TRAIN_STEPS
+    arch = cut(get("mixtral-8x7b", smoke=smoke), MOE_TRAIN_LAYERS)
+    cfg = arch.cfg
+    data = SyntheticTokens(cfg, ShapeSpec("train_4k_cut", "train", seq=seq, batch=1), seed=0)
+    clock = _timer(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    params = arch.init(torch.Generator(device=device).manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    opt = init_opt_state(params)
+    step_fn = make_train_step(arch)
+
+    def batch_at(step):
+        return {k: torch.from_numpy(v).to(device) for k, v in data.batch_at(step).items()}
+
+    with torch.no_grad():
+        b0 = batch_at(0)
+        _, aux = lm.backbone(params, cfg, lm._inputs_to_embeddings(params, cfg, b0))
+    aux_layer = float(aux) / cfg.n_layers
+    print(f"{tag} {cfg.name} cut to {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}: {n_params:,} parameters "
+          f"({cfg.dtype}, router float32); seq {seq} x batch 1, capacity factor "
+          f"{cfg.capacity_factor} (C = {int(np.ceil(cfg.capacity_factor * seq * cfg.top_k / cfg.n_experts))}); "
+          f"aux loss at init {float(aux):.5f} ({aux_layer:.5f} a layer)", flush=True)
+    if not np.isfinite(aux_layer) or not 0.8 <= aux_layer <= 1.5:
+        raise AssertionError(f"{tag} aux loss {float(aux)} at init")
+    log = []
+    for step in range(steps):
+        batch = b0 if step == 0 else batch_at(step)
+        stop = clock()
+        params, opt, m = step_fn(params, opt, batch)
+        ms = stop()()
+        r = {"step": step + 1, "ms": ms, "tok_per_s": seq / (ms / 1e3), "loss": float(m["loss"]),
+             "grad_norm": float(m["grad_norm"])}
+        log.append(r)
+        print(f"{tag} step {r['step']}: {ms:.3f} ms (stream clock), {r['tok_per_s']:.0f} "
+              f"tokens/s, loss {r['loss']:.6f}, grad norm {r['grad_norm']:.6f}", flush=True)
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+            raise AssertionError(f"{tag} step {r['step']}: loss {r['loss']}")
+    rec = {"model": cfg.name, "layers": cfg.n_layers, "seq": seq, "n_params": n_params,
+           "aux_at_init": float(aux), "log": log}
+    if device.type == "cuda":
+        rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
+        print(f"{tag} peak device memory: {rec['peak_mem_bytes'] / 1e9:.3f} GB", flush=True)
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        batch = batch_at(steps)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+        busy_ms, events = device_spans(prof)
+        step_ms = float(np.median([r["ms"] for r in log[1:]]))
+        rec["profile"] = {"busy_ms": busy_ms, "step_ms": step_ms,
+                          "idle_share": 1.0 - busy_ms / step_ms, "events": len(events),
+                          "top": _device_top(events, 5)}
+        print(f"{tag} one more step under torch.profiler: {busy_ms:.3f} ms device busy "
+              f"against the unprofiled warm steps' median {step_ms:.3f} ms (idle share "
+              f"{rec['profile']['idle_share']:.4f}), {len(events)} device events; the five "
+              "with the most device time:", flush=True)
+        for name, n, ms in rec["profile"]["top"]:
+            print(f"{tag}   {ms:10.3f} ms  x{n:<5d} {name[:100]}", flush=True)
+    return rec
+
+
+def run_families(device) -> dict:
+    """The moe, vlm and encdec families through the port's entry points at
+    their published widths (see :data:`FAMILY_SERVES`): each model served
+    through the closed loop (``run_serve``: every round's tokens equal to
+    ``ServingEngine.generate``'s, picks equal to the host policy's, one
+    bucket, K1 launched in every round; one profiled round, the prefill and
+    a decode step alone), mixtral's decode-vs-prefill continuation, mixtral
+    trained at 2 layers (:func:`run_moe_train`), and whisper trained through
+    the ``[train]`` protocol (``run_train``: checkpoints at (8, 4), a restart
+    from 6 of 8 strips per leaf, the restarted final loss equal to the
+    straight run's to rel 1e-4). Each model is dropped and the allocator's
+    cache emptied before the next."""
+    rec: dict = {"serve": {}, "wall_s": {}}
+
+    def timed(key: str, tag: str, fn):
+        t0 = time.monotonic()
+        rec[key] = out = fn()
+        rec["wall_s"][tag] = time.monotonic() - t0
+        _empty_cache(device)
+        print(f"{tag}: {rec['wall_s'][tag]:.1f} s wall", flush=True)
+        return out
+
+    for model, layers, rows, prompt_len, max_seq in FAMILY_SERVES:
+        name = model.split("-")[0]
+        rec["serve"][model] = timed(f"serve_{name}", f"[families] {name} serve", lambda: run_serve(
+            device, model=model, layers=layers, n_objects=FAMILY_ROUNDS * rows,
+            rounds=FAMILY_ROUNDS, per_round=rows, prompt_len=prompt_len, steps=FAMILY_STEPS,
+            max_seq=max_seq, tag=f"[families] {name} serve"))
+        if model == "mixtral-8x7b":
+            timed("continuation", "[families] mixtral continuation", lambda: check_continuation(
+                device, model, layers))
+            timed("moe_train", "[families] mixtral train", lambda: run_moe_train(device))
+    timed("whisper_train", "[families] whisper train", lambda: run_train(
+        device, model="whisper-base", seq=WHISPER_TRAIN_SEQ, batch=WHISPER_TRAIN_BATCH,
+        tag="[families] whisper train"))
     return rec
 
 
@@ -2048,6 +2256,23 @@ def main() -> int:
                              f"at least {need}")
     torch.cuda.empty_cache()
 
+    gf2mm.gf2_rs_matmul_bytes.launches = 0
+    t0 = time.monotonic()
+    families = run_families(device)
+    families_launches = gf2mm.gf2_rs_matmul_bytes.launches
+    print(f"[families] the phase: {time.monotonic() - t0:.1f} s wall", flush=True)
+    wt = families["whisper_train"]
+    need = (len(FAMILY_SERVES) * FAMILY_ROUNDS + 4 * wt["encode_groups"]
+            + wt["restore"]["decode_groups"])
+    print(f"[families] K1 launches on the families path: {families_launches} ("
+          f"{len(FAMILY_SERVES)} models x {FAMILY_ROUNDS} rounds + 4 whisper checkpoints x "
+          f"{wt['encode_groups']} encode groups + {wt['restore']['decode_groups']} decode groups "
+          f"= {need}, then the profiled rounds, the proxies' codec calls and the shard)",
+          flush=True)
+    if families_launches < need:
+        raise AssertionError(f"K1 launched {families_launches} times on the families path, "
+                             f"expected at least {need}")
+
     fleet = run_fleet(device)
     taskq = run_taskq(device, fleet_tofec=fleet["tofec_points"])
     run_mpc()
@@ -2073,7 +2298,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/gf2mm/gf2mm.py:154",
         "launches": launches,
         "launches_by_path": {"main": launches, "serve": serve_launches, "obs": obs_launches,
-                             "train": train_launches},
+                             "train": train_launches, "families": families_launches},
         "byte_equal": k1["byte_equal"],
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],

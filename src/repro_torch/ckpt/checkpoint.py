@@ -11,8 +11,9 @@ other. Every checkpoint leaf (one tensor of the params/opt-state tree) is:
   3. written as n independent objects ``{prefix}/step{s}/{leaf}/strip{i}``.
 
 Leaves are named and ordered as ``jax.tree_util.tree_flatten_with_path``
-names and orders them (dict keys sorted, joined by ``/``:
-``opt/m/embedding/embed``, ``opt/step``, ``params/layers/attn/wq``), and
+names and orders them (dict keys sorted, list items by index, joined by
+``/``: ``opt/m/embedding/embed``, ``opt/step``, ``params/layers/attn/wq``,
+``params/decoder/0/cross_attn/wq``), and
 the manifest is the reference's JSON, dtype strings included
 (``"bfloat16"``, ``"float32"``, ``"int32"``). Bytes are serialized through
 a same-width byte view of the tensor, so bfloat16 needs no numpy dtype.
@@ -51,7 +52,7 @@ from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
 def _leaf_paths(tree) -> list[tuple[str, object]]:
-    return [("/".join(path), leaf) for path, leaf in tree_flatten(tree)]
+    return [("/".join(map(str, path)), leaf) for path, leaf in tree_flatten(tree)]
 
 
 def _host(leaf) -> torch.Tensor:

@@ -1,15 +1,26 @@
-"""Exact per-architecture configs of the dense family (one module each).
+"""Exact per-architecture configs of the ported families (one module each).
 
-Copies of the reference package's ``repro/configs`` modules for the dense
-family. Import side-effect free; each module exports ``CONFIG`` plus a
-``smoke_config()`` returning a reduced same-family config for CPU tests.
-The MoE, VLM, encoder-decoder, SSM and hybrid configs wait for the port of
-their families (ROADMAP item 13).
+Copies of the reference package's ``repro/configs`` modules for the dense,
+moe, vlm and encdec families, in the reference's order. Import side-effect
+free; each module exports ``CONFIG`` plus a ``smoke_config()`` returning a
+reduced same-family config for CPU tests. The ssm and hybrid configs
+(xlstm-350m, zamba2-2.7b) wait for the port of their families (ROADMAP
+item 13).
 """
 
-from repro_torch.configs import gemma2_2b, mistral_nemo_12b, qwen1_5_0_5b, yi_6b
+from repro_torch.configs import (
+    gemma2_2b,
+    grok_1_314b,
+    mistral_nemo_12b,
+    mixtral_8x7b,
+    pixtral_12b,
+    qwen1_5_0_5b,
+    whisper_base,
+    yi_6b,
+)
 
-_MODULES = [gemma2_2b, mistral_nemo_12b, yi_6b, qwen1_5_0_5b]
+_MODULES = [whisper_base, gemma2_2b, mistral_nemo_12b, yi_6b, qwen1_5_0_5b, pixtral_12b,
+            grok_1_314b, mixtral_8x7b]
 
 ALL_CONFIGS = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

@@ -105,23 +105,33 @@ def _softcap(x, cap):
     return cap * torch.tanh(x / cap) if cap else x
 
 
-def _project_qkv(params, cfg: ModelConfig, x, positions):
+def project_q(params, cfg: ModelConfig, x, positions):
+    """The roped (B, S, H, hd) queries of ``x``."""
     B, S, _ = x.shape
-    hd = cfg.hd
     q = x @ params["wq"]
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+    return rope(q.reshape(B, S, cfg.n_heads, cfg.hd), positions, cfg.rope_theta)
+
+
+def project_kv(params, cfg: ModelConfig, x, positions):
+    """The roped (B, S, Hkv, hd) keys and the values of ``x``."""
+    B, S, _ = x.shape
     k = x @ params["wk"]
     v = x @ params["wv"]
     if cfg.qkv_bias:
-        q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
-    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    return rope(k, positions, cfg.rope_theta), v
 
 
-def _block_attn(q, k, v, qpos, kpos, scale, softcap, window):
+def _project_qkv(params, cfg: ModelConfig, x, positions):
+    return (project_q(params, cfg, x, positions), *project_kv(params, cfg, x, positions))
+
+
+def _block_attn(q, k, v, qpos, kpos, scale, softcap, causal, window):
     """One (q-chunk × kv-chunk) block. q: (B,qc,Hkv,G,hd), k/v: (B,kc,Hkv,hd).
 
     Returns (o (B,qc,Hkv,G,hd) in v's dtype, row max, row sum), the block's
@@ -135,7 +145,9 @@ def _block_attn(q, k, v, qpos, kpos, scale, softcap, window):
     """
     s = torch.einsum("bqhgd,bkhd->bhgqk", q.to(torch.float32), k.to(torch.float32))
     dqk = qpos[:, None] - kpos[None, :]  # (qc, kc)
-    mask = (kpos >= 0)[None, :] & (dqk >= 0)  # padded kv positions carry kpos < 0
+    mask = (kpos >= 0)[None, :]  # padded kv positions carry kpos < 0
+    if causal:
+        mask = mask & (dqk >= 0)
     if window is not None:
         mask = mask & (dqk < window)
     if torch.is_grad_enabled():
@@ -159,9 +171,13 @@ def chunked_attention(
     *,
     window: int | None,
     softcap: float | None,
+    causal: bool = True,
+    q_offset: int = 0,
 ) -> torch.Tensor:
-    """Causal flash-style online-softmax attention over q and kv chunks of
-    ``cfg.attn_q_chunk`` × ``cfg.attn_kv_chunk``, in the reference's order.
+    """Flash-style online-softmax attention over q and kv chunks of
+    ``cfg.attn_q_chunk`` × ``cfg.attn_kv_chunk``, in the reference's order;
+    causal unless ``causal=False`` (the encoder, cross-attention), the
+    queries at positions ``q_offset + i``.
 
     With ``window`` set, only the banded kv range [q_hi − window − qc, q_hi)
     is visited per q-chunk, making SWA linear in sequence length.
@@ -194,9 +210,9 @@ def chunked_attention(
     outs = []
     for qi in range(nq):
         qblk = q[:, qi]
-        qpos = qi * qc + torch.arange(qc, device=dev)
+        qpos = q_offset + qi * qc + torch.arange(qc, device=dev)
         if band:
-            hi = (qi + 1) * qc
+            hi = q_offset + (qi + 1) * qc
             start = min(max(hi - span_k, 0), Skv - span_k)
             kblk_all = k[:, start:start + span_k]
             vblk_all = v[:, start:start + span_k]
@@ -210,7 +226,7 @@ def chunked_attention(
         for ki in range(span_k // kc):
             sl = slice(ki * kc, (ki + 1) * kc)
             o, m, l = _block_attn(qblk, kblk_all[:, sl], vblk_all[:, sl], qpos, kpos_band[sl],
-                                  scale, softcap, window)
+                                  scale, softcap, causal, window)
             m_new = torch.maximum(m_acc, m)
             c_old = torch.exp(m_acc - m_new)
             c_new = torch.exp(m - m_new)
@@ -230,16 +246,22 @@ def attention(
     cfg: ModelConfig,
     x: torch.Tensor,
     *,
+    causal: bool = True,
     window: int | None = None,
     positions: torch.Tensor | None = None,
+    kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Causal self-attention sublayer. x: (B, S, d) → (out, k, v), with the
-    layer's (B, S, Hkv, hd) keys and values for prefill to cache."""
+    """Attention sublayer for train and prefill. x: (B, S, d) → (out, k, v),
+    with the (B, S, Hkv, hd) keys and values it attended to, for prefill
+    to cache. ``kv_override`` gives cross-attention's keys and values (the
+    whisper decoder's, over the encoder memory) in place of ``x``'s."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
-    q, k, v = _project_qkv(params, cfg, x, positions)
-    out = chunked_attention(cfg, q, k, v, window=window, softcap=cfg.attn_softcap)
+    q = project_q(params, cfg, x, positions)
+    k, v = kv_override if kv_override is not None else project_kv(params, cfg, x, positions)
+    out = chunked_attention(cfg, q, k, v, window=window, softcap=cfg.attn_softcap,
+                            causal=causal)
     return out.reshape(B, S, cfg.n_heads * cfg.hd) @ params["wo"], k, v
 
 

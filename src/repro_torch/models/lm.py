@@ -1,5 +1,5 @@
-"""Decoder-only LM for the dense family: init, training loss, prefill and
-cached decode.
+"""Decoder-only LM for the dense, moe and vlm families: init, training
+loss, prefill and cached decode.
 
 Mirrors the reference package's ``repro/models/lm.py``. The parameters keep
 the reference's stacked layout — ``params["layers"][...]`` leaves carry a
@@ -10,14 +10,17 @@ forward (so the backward stacks each leaf's gradient once, instead of
 adding one zero-padded full-size gradient per layer). Per-layer attention
 patterns (gemma2's local/global alternation) are static per layer, so a
 local layer runs only its windowed attention, which gives the values the
-reference selects with ``where``/``cond`` from both.
+reference selects with ``where``/``cond`` from both. The moe family puts
+:mod:`repro_torch.models.moe` in place of the MLP (capacity routing in
+training, dropless in prefill and decode; its auxiliary loss summed in
+float32 in layer order); the vlm family puts the projected patch
+embeddings in front of the tokens.
 
 Training wraps each block in ``torch.utils.checkpoint`` as the reference
 wraps it in ``jax.checkpoint`` (:func:`_remat`), and the LM head + cross
 entropy run over 512-token chunks, each checkpointed, so one chunk's
 (B, 512, V) float32 logits is live at a time. Inference runs under
-``torch.inference_mode()``. The MoE and VLM families wait for ROADMAP
-item 13.
+``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as ly
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_map
 
@@ -40,11 +44,15 @@ AUX_LOSS_WEIGHT = 0.01
 LOSS_CHUNK = 512
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.n_experts:
+#: The families this module runs; the registry maps each of them here.
+FAMILIES = ("dense", "moe", "vlm")
+
+
+def _require_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (n_experts={cfg.n_experts}) is not ported "
-            "yet; only the dense decoder is (MoE and VLM wait for ROADMAP.md item 13)")
+            f"{cfg.name}: this module runs the {', '.join(FAMILIES)} families, not "
+            f"{cfg.family!r} (the ssm and hybrid families wait for ROADMAP.md item 13)")
 
 
 def _layer_windows(cfg: ModelConfig) -> list[int]:
@@ -74,36 +82,52 @@ def _unstack(stacked, n: int) -> list:
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, device):
     dtype = ly.dt(cfg)
-    return {
+    p = {
         "ln1": ly.init_rmsnorm(cfg.d_model, dtype, device),
         "attn": ly.init_attention(gen, cfg, device),
         "ln2": ly.init_rmsnorm(cfg.d_model, dtype, device),
-        "mlp": ly.init_mlp(gen, cfg, device),
     }
+    if cfg.n_experts:
+        p["moe"] = moe_mod.init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = ly.init_mlp(gen, cfg, device)
+    return p
+
+
+def _init_layers(gen: torch.Generator, cfg: ModelConfig, device):
+    """The blocks' parameters in the stacked layout: each (n_layers, ...)
+    leaf allocated once and filled a block at a time, drawn block after
+    block, so only one block is ever held twice."""
+    stacked = None
+    for i in range(cfg.n_layers):
+        block = init_block(gen, cfg, device)
+        if stacked is None:
+            stacked = tree_map(lambda t: torch.empty((cfg.n_layers, *t.shape), dtype=t.dtype,
+                                                     device=t.device), block)
+        tree_map(lambda dst, src: dst[i].copy_(src), stacked, block)
+    return stacked
 
 
 def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None):
     """Random parameters from ``generator`` on its device; without one, from
     seed 0 on ``device`` (default: the card), where ``"meta"`` gives the
-    parameters' shapes and dtypes without allocating them."""
-    _require_dense(cfg)
+    parameters' shapes and dtypes without allocating them. The vlm family
+    adds ``vision_proj``, drawn last."""
+    _require_family(cfg)
     if generator is None:
         dev = resolve_device(device)
         generator = torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(0)
     else:
         dev = generator.device
-    return {
+    params = {
         "embedding": ly.init_embedding(generator, cfg, dev),
-        "layers": _stack([init_block(generator, cfg, dev) for _ in range(cfg.n_layers)]),
+        "layers": _init_layers(generator, cfg, dev),
         "ln_f": ly.init_rmsnorm(cfg.d_model, ly.dt(cfg), dev),
     }
-
-
-def _stack(trees):
-    """Trees of the same structure → one tree of leaves stacked on axis 0."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+    if cfg.family == "vlm":
+        params["vision_proj"] = ly.init_dense(generator, cfg.d_model, cfg.d_model, ly.dt(cfg),
+                                              dev)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -134,28 +158,43 @@ def _remat(cfg: ModelConfig, fn):
     return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
+def _ffn(cfg: ModelConfig, p, h, *, dropless: bool):
+    """The block's MLP or MoE on ``h``: (out, the MoE's aux loss or None)."""
+    if cfg.n_experts:
+        return moe_mod.moe_mlp(p["moe"], cfg, h, dropless=dropless)
+    return ly.mlp(p["mlp"], cfg, h), None
+
+
 def _block_apply(cfg: ModelConfig, window: int, p, x):
-    """One transformer block; ``window`` 0 = full causal attention."""
+    """One transformer block; ``window`` 0 = full causal attention. Returns
+    (x, aux): the MoE's capacity-routed aux loss, None without experts."""
     h = ly.rmsnorm(p["ln1"], x)
     x = x + ly.attention(p["attn"], cfg, h, window=window or None)[0]
     h = ly.rmsnorm(p["ln2"], x)
-    return x + ly.mlp(p["mlp"], cfg, h)
+    out, aux = _ffn(cfg, p, h, dropless=False)
+    return x + out, aux
 
 
 def backbone(params, cfg: ModelConfig, x):
     """(B, S, d) → ((B, S, d), aux loss) through the layer stack, each block
-    under :func:`_remat`. The dense family has no auxiliary loss (float32
-    zero, as the reference's)."""
-    _require_dense(cfg)
+    under :func:`_remat`. The aux loss is the blocks' float32 sum in layer
+    order (a float32 zero without experts, as the reference's)."""
+    _require_family(cfg)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, window in zip(_unstack(params["layers"], cfg.n_layers), _layer_windows(cfg)):
-        x = _remat(cfg, functools.partial(_block_apply, cfg, window))(p, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return ly.rmsnorm(params["ln_f"], x), aux
+        x, aux = _remat(cfg, functools.partial(_block_apply, cfg, window))(p, x)
+        if aux is not None:
+            aux_sum = aux_sum + aux
+    return ly.rmsnorm(params["ln_f"], x), aux_sum
 
 
 def _inputs_to_embeddings(params, cfg: ModelConfig, batch):
-    """tokens → (B, S, d)."""
-    return ly.embed(params["embedding"], cfg, batch["tokens"])
+    """tokens (behind the projected patch embeddings for vlm) → (B, S, d)."""
+    x = ly.embed(params["embedding"], cfg, batch["tokens"])
+    if cfg.family == "vlm":
+        vis = batch["patches"].to(ly.dt(cfg)) @ params["vision_proj"]
+        x = torch.cat([vis, x], dim=1)
+    return x
 
 
 def _chunk_ce_sum(cfg: ModelConfig, params, xc, lc):
@@ -182,8 +221,9 @@ def chunked_ce_loss(params, cfg: ModelConfig, x, labels):
 
 
 def train_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
-    """Mean CE against pre-aligned next-token labels (+ the auxiliary loss)."""
-    _require_dense(cfg)
+    """Mean CE against pre-aligned next-token labels over the token
+    positions only (vlm: not the patch prefix), + the MoE's aux loss."""
+    _require_family(cfg)
     x = _inputs_to_embeddings(params, cfg, batch)
     x, aux = backbone(params, cfg, x)
     loss = chunked_ce_loss(params, cfg, x[:, -batch["tokens"].shape[1]:], batch["labels"])
@@ -218,9 +258,10 @@ def decode_step(params, cfg: ModelConfig, token, cache):
     """token: (B, 1) int32 → (logits (B, 1, V) float32, cache).
 
     The cache's k, v and slot_pos are updated in place and returned in a
-    new dict with ``pos`` advanced; ``pos`` stays on the device.
+    new dict with ``pos`` advanced; ``pos`` stays on the device. MoE
+    routes dropless.
     """
-    _require_dense(cfg)
+    _require_family(cfg)
     x = ly.embed(params["embedding"], cfg, token)
     pos = cache["pos"]
     layers = _unstack(params["layers"], cfg.n_layers)
@@ -230,7 +271,7 @@ def decode_step(params, cfg: ModelConfig, token, cache):
             p["attn"], cfg, h, cache["k"][i], cache["v"][i], cache["slot_pos"][i], pos,
             window=window or None)
         h = ly.rmsnorm(p["ln2"], x)
-        x = x + ly.mlp(p["mlp"], cfg, h)
+        x = x + _ffn(cfg, p, h, dropless=True)[0]
     x = ly.rmsnorm(params["ln_f"], x)
     lg = ly.logits(params["embedding"], cfg, x)
     return lg, {"k": cache["k"], "v": cache["v"], "slot_pos": cache["slot_pos"],
@@ -239,9 +280,11 @@ def decode_step(params, cfg: ModelConfig, token, cache):
 
 @torch.inference_mode()
 def prefill(params, cfg: ModelConfig, batch, max_seq: int | None = None):
-    """Run the full prompt, return (last-token logits, primed cache)."""
-    _require_dense(cfg)
-    x = ly.embed(params["embedding"], cfg, batch["tokens"])
+    """Run the full prompt (behind the patch prefix for vlm, whose
+    positions the cache counts too), return (last-token logits, primed
+    cache). MoE routes dropless, so decode continues it exactly."""
+    _require_family(cfg)
+    x = _inputs_to_embeddings(params, cfg, batch)
     B, S, _ = x.shape
     max_seq = max_seq or S
     cache = init_cache(cfg, B, max_seq, device=x.device)
@@ -251,15 +294,10 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int | None = None):
                                   window=window or None)
         x = x + attn
         h = ly.rmsnorm(p["ln2"], x)
-        x = x + ly.mlp(p["mlp"], cfg, h)
+        x = x + _ffn(cfg, p, h, dropless=True)[0]
         ly.fill_cache_from_prefill(k, v, cache["k"][i], cache["v"][i], cache["slot_pos"][i])
     x = ly.rmsnorm(params["ln_f"], x)
     last = ly.logits(params["embedding"], cfg, x[:, -1:])
     cache["pos"] = torch.full((), S, dtype=torch.int32, device=x.device)
     return last, cache
 
-
-def prefill_tokens(params, cfg: ModelConfig, tokens, max_seq: int | None = None):
-    """Tokens-only prefill contract of the fused serving tower: a plain
-    (B, S) int32 tensor on the parameters' device in, (logits, cache) out."""
-    return prefill(params, cfg, {"tokens": tokens}, max_seq)

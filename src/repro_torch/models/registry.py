@@ -1,7 +1,8 @@
 """Architecture registry: one API over the port's model families.
 
-Mirrors the reference package's ``repro/models/registry.py`` for the dense
-family (the others wait for ROADMAP item 13). Every entry exposes
+Mirrors the reference package's ``repro/models/registry.py`` for the dense,
+moe, vlm and encdec families (ssm and hybrid wait for ROADMAP item 13).
+Every entry exposes
 ``init(generator, device)``, ``train_loss(params, batch)``,
 ``prefill(params, batch, max_seq)``,
 ``decode_step(params, token, cache)``, ``init_cache(B, max_seq, device)``
@@ -19,11 +20,25 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import layers, lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig, ShapeSpec
 from repro_torch.tree import tree_map
 
-_FAMILY_MODULES = {"dense": lm}
+_FAMILY_MODULES = {**{family: lm for family in lm.FAMILIES}, "encdec": encdec}
+
+
+def zero_extras(cfg: ModelConfig, tokens: torch.Tensor) -> dict:
+    """``{"tokens": tokens}`` plus the all-zero float32 frames (encdec) or
+    patches (vlm) that the serving paths feed a family with a non-token
+    input, as the reference's do (the serving tower has no audio or image
+    side), on the tokens' device."""
+    batch = {"tokens": tokens}
+    extra = {"encdec": ("frames", cfg.encoder_seq), "vlm": ("patches", cfg.vision_patches)}
+    if cfg.family in extra:
+        name, length = extra[cfg.family]
+        batch[name] = torch.zeros((tokens.shape[0], length, cfg.d_model), dtype=torch.float32,
+                                  device=tokens.device)
+    return batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,8 +70,9 @@ class Arch:
 
     def prefill_tokens(self, params, tokens, max_seq=None):
         """Tokens-only prefill (fused-serving contract): (B, S) int32 tensor
-        in, (logits, cache) out."""
-        return self.module.prefill_tokens(params, self.cfg, tokens, max_seq)
+        in, (logits, cache) out; the batch gets the zero non-token extras
+        (vlm patches, encdec frames) on the tokens' device."""
+        return self.module.prefill(params, self.cfg, zero_extras(self.cfg, tokens), max_seq)
 
 
 def _configs(smoke: bool):
@@ -70,8 +86,8 @@ def _configs(smoke: bool):
 def get(name: str, smoke: bool = False) -> Arch:
     cfgs = _configs(smoke)
     if name not in cfgs:
-        raise KeyError(f"unknown arch {name!r}; the port has {sorted(cfgs)} (the other "
-                       "families wait for ROADMAP.md item 13)")
+        raise KeyError(f"unknown arch {name!r}; the port has {sorted(cfgs)} (the ssm and "
+                       "hybrid families wait for ROADMAP.md item 13)")
     cfg = cfgs[name]
     return Arch(cfg=cfg, module=_FAMILY_MODULES[cfg.family])
 
@@ -92,26 +108,32 @@ def make_batch(cfg: ModelConfig, shape: ShapeSpec, rng: np.random.Generator | No
     def ids():
         return torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, S)).astype(np.int32)).to(dev)
 
+    def normal(length):
+        return torch.from_numpy(rng.normal(size=(B, length, cfg.d_model)).astype(np.float32)).to(dev)
+
     batch = {"tokens": ids()}
     if shape.kind == "train":
         batch["labels"] = ids()
+    if cfg.family == "encdec":
+        batch["frames"] = normal(cfg.encoder_seq)
+    if cfg.family == "vlm":
+        batch["patches"] = normal(cfg.vision_patches)
     return batch
 
 
-def params_from_numpy(tree, cfg: ModelConfig, device=None):
-    """A parameter tree of numpy arrays (nested dicts, as the reference's
-    ``jax.tree.map(np.asarray, params)`` gives them) → the port's tensors
-    with the same keys, floating leaves in ``cfg.dtype``, on ``device``
-    (default: the card). bfloat16 arrays pass through float32 (exact), since
-    ``torch.from_numpy`` refuses that dtype."""
+def params_from_numpy(tree, device=None):
+    """A parameter tree of numpy arrays (nested dicts and lists, as the
+    reference's ``jax.tree.map(np.asarray, params)`` gives them) → the
+    port's tensors with the same structure, on ``device`` (default: the
+    card). Each leaf keeps its own dtype: a bfloat16 model's float32 MoE
+    router stays float32. bfloat16 arrays pass through float32 (exact),
+    since ``torch.from_numpy`` refuses that dtype."""
     dev = resolve_device(device)
-    dtype = layers.dt(cfg)
 
     def leaf(a):
         a = np.array(a)  # a writable copy: the reference's arrays are read-only
         if a.dtype.name == "bfloat16":
-            a = a.astype(np.float32)
-        t = torch.from_numpy(a).to(dev)
-        return t.to(dtype) if t.is_floating_point() else t
+            return torch.from_numpy(a.astype(np.float32)).to(dev).to(torch.bfloat16)
+        return torch.from_numpy(a).to(dev)
 
     return tree_map(leaf, tree)

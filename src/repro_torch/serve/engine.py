@@ -503,10 +503,11 @@ class ServingEngine:
         return torch.stack(out, dim=1)
 
     def generate(self, prompts: np.ndarray, steps: int) -> np.ndarray:
-        """prompts: (B, S) int32 → (B, steps) greedily generated ids."""
+        """prompts: (B, S) int32 → (B, steps) greedily generated ids. The vlm
+        family sees an all-zero patch grid and encdec all-zero frames, as
+        the reference's ``generate`` gives them."""
         tokens = torch.from_numpy(np.asarray(prompts, np.int32)).to(self.device)
-        logits, cache = self.arch.prefill(self.params, {"tokens": tokens},
-                                          max_seq=self.max_seq)
+        logits, cache = self.arch.prefill_tokens(self.params, tokens, max_seq=self.max_seq)
         return self.continue_greedy(logits, cache, steps).cpu().numpy()
 
     def serve(

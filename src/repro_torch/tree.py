@@ -1,11 +1,15 @@
-"""Nested-dict trees of tensors: the port's stand-in for ``jax.tree``.
+"""Trees of tensors (nested dicts and lists): the port's stand-in for
+``jax.tree``.
 
 The reference package's parameter, optimizer-state and batch trees are
-nested dicts. ``jax.tree_util`` walks a dict in SORTED key order, and the
-order matters beyond style: the optimizer's global norm sums its leaves in
-that order, and a checkpoint names, groups and writes its leaves in it. So
-:func:`tree_flatten` sorts keys as JAX does; anything that is not a dict is
-a leaf.
+nested dicts, and the encoder-decoder keeps its blocks in lists.
+``jax.tree_util`` walks a dict in SORTED key order and a list in index
+order, and the order matters beyond style: the optimizer's global norm sums
+its leaves in that order, and a checkpoint names, groups and writes its
+leaves in it. So :func:`tree_flatten` walks them as JAX does, a list item's
+path entry being its index (an ``int``; ``"/".join(map(str, path))`` gives
+the reference checkpoint's leaf name, ``params/decoder/0/cross_attn/wq``);
+anything that is neither a dict nor a list is a leaf.
 """
 
 from __future__ import annotations
@@ -15,14 +19,25 @@ def tree_map(fn, tree, *rest):
     """``fn`` applied leaf by leaf over ``tree`` and trees of its structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
-def tree_flatten(tree) -> list[tuple[tuple[str, ...], object]]:
-    """[(key path, leaf)] in JAX's order: dict keys sorted, depth first."""
-    if not isinstance(tree, dict):
+def _children(node) -> list:
+    """[(path entry, child)] of a dict (keys sorted) or a list (in order)."""
+    if isinstance(node, dict):
+        return [(k, node[k]) for k in sorted(node)]
+    return list(enumerate(node))
+
+
+def tree_flatten(tree) -> list[tuple[tuple[str | int, ...], object]]:
+    """[(path, leaf)] in JAX's order: dict keys sorted, list items in order,
+    depth first."""
+    if not isinstance(tree, (dict, list)):
         return [((), tree)]
-    return [((k, *path), leaf) for k in sorted(tree) for path, leaf in tree_flatten(tree[k])]
+    return [((k, *path), leaf) for k, child in _children(tree)
+            for path, leaf in tree_flatten(child)]
 
 
 def tree_leaves(tree) -> list:
@@ -37,6 +52,8 @@ def tree_unflatten(like, leaves):
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(child) for child in node]
         return next(it)
 
     out = build(like)

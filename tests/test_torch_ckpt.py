@@ -53,8 +53,7 @@ def _train_state():
     mom = lambda: jax.tree.map(  # noqa: E731
         lambda a: rng.standard_normal(a.shape).astype(np.float32), rp)
     ref_tree = {"params": rp, "opt": {"m": mom(), "v": mom(), "step": np.int32(7)}}
-    cfg = get("qwen1.5-0.5b", smoke=True).cfg
-    port_tree = {"params": params_from_numpy(rp, cfg, CPU),
+    port_tree = {"params": params_from_numpy(rp, CPU),
                  "opt": {"m": _tensor_tree(ref_tree["opt"]["m"]),
                          "v": _tensor_tree(ref_tree["opt"]["v"]),
                          "step": torch.tensor(7, dtype=torch.int32)}}

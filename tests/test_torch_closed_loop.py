@@ -67,7 +67,7 @@ def _archs(name="qwen1.5-0.5b", seed=0, dtype=None):
     ref = RefArch(cfg=cfg, module=ref.module)
     port = Arch(cfg=ModelConfig(**dataclasses.asdict(cfg)), module=get(name, smoke=True).module)
     rp = ref.init(jax.random.key(seed))
-    return ref, rp, port, params_from_numpy(jax.tree.map(np.asarray, rp), port.cfg, CPU)
+    return ref, rp, port, params_from_numpy(jax.tree.map(np.asarray, rp), CPU)
 
 
 def _store_prompts(rng, vocab, n, layout, stores):

@@ -47,8 +47,10 @@ def test_port_imports_no_jax_and_no_reference_package():
         ("sched", ("", ".frontier", ".scan", ".sweep")),
         ("taskq", ("", ".engine", ".policies", ".sweep"))) for mod in mods])
     assert lines["LM"] == str([f"repro_torch.{pkg}{mod}" for pkg, mods in (
-        ("configs", ("", ".gemma2_2b", ".mistral_nemo_12b", ".qwen1_5_0_5b", ".yi_6b")),
-        ("models", ("", ".config", ".layers", ".lm", ".registry"))) for mod in mods])
+        ("configs", ("", ".gemma2_2b", ".grok_1_314b", ".mistral_nemo_12b", ".mixtral_8x7b",
+                     ".pixtral_12b", ".qwen1_5_0_5b", ".whisper_base", ".yi_6b")),
+        ("models", ("", ".config", ".encdec", ".layers", ".lm", ".moe", ".registry")))
+        for mod in mods])
     assert lines["OBS"] == str([f"repro_torch.obs{mod}" for mod in (
         "", ".compile", ".dashboard", ".flight", ".meta", ".metrics", ".profile", ".slo",
         ".state", ".timeline", ".trace")])

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.models import arch_names as ref_arch_names
 from repro.models import get as ref_get
 from repro.models import layers as ref_ly
 from repro.models.config import ShapeSpec as RefShapeSpec
@@ -26,6 +27,8 @@ from repro_torch.models.registry import Arch
 
 CPU = torch.device("cpu")
 DENSE = ["gemma2-2b", "mistral-nemo-12b", "yi-6b", "qwen1.5-0.5b"]
+#: The other families' configs the port runs (tests/test_torch_families.py).
+PORTED = ["mixtral-8x7b", "grok-1-314b", "pixtral-12b", "whisper-base"]
 TOL = {"float32": 1e-4, "bfloat16": 0.08}
 
 
@@ -37,7 +40,7 @@ def _pair(name, dtype, seed=1):
     ref = RefArch(cfg=cfg, module=ref.module)
     port = Arch(cfg=_port_cfg(cfg), module=get(name, smoke=True).module)
     rp = ref.init(jax.random.key(seed))
-    return ref, port, rp, params_from_numpy(jax.tree.map(np.asarray, rp), port.cfg, CPU)
+    return ref, port, rp, params_from_numpy(jax.tree.map(np.asarray, rp), CPU)
 
 
 def _port_cfg(ref_cfg):
@@ -178,10 +181,12 @@ def test_decode_attention_through_a_wrapped_ring(window, dtype):
 
 
 def test_registry_lists_the_dense_family_with_the_reference_layout():
-    assert sorted(arch_names()) == sorted(DENSE)
+    """Every ported family's configs, in the reference's order, and each
+    one's init shapes and dtypes against the reference's ``eval_shape``."""
+    assert arch_names() == [n for n in ref_arch_names() if n in DENSE + PORTED]
     with pytest.raises(KeyError, match="item 13"):
-        get("mixtral-8x7b")
-    for name in DENSE:
+        get("zamba2-2.7b")
+    for name in DENSE + PORTED:
         arch = get(name, smoke=True)
         assert arch.cfg == _port_cfg(ref_get(name, smoke=True).cfg)
         assert get(name).cfg == _port_cfg(ref_get(name).cfg)
@@ -194,9 +199,11 @@ def test_registry_lists_the_dense_family_with_the_reference_layout():
         assert shapes == ref_shapes, name
         # The reference's distributions: zero norm scales and QKV biases.
         assert not params["ln_f"]["scale"].any()
-        assert not params["layers"]["ln1"]["scale"].any()
+        blocks = params["decoder"][0] if arch.cfg.family == "encdec" else params["layers"]
+        assert not blocks["ln1"]["scale"].any()
         if arch.cfg.qkv_bias:
-            assert not params["layers"]["attn"]["bq"].any()
+            attn = blocks["self_attn"] if arch.cfg.family == "encdec" else blocks["attn"]
+            assert not attn["bq"].any()
 
 
 def test_init_is_seeded_and_scaled():
@@ -209,12 +216,16 @@ def test_init_is_seeded_and_scaled():
 
 
 def test_other_families_raise_naming_item_13():
+    """The ssm and hybrid families are not ported: their configs are not
+    registered, and ``lm`` refuses them."""
+    with pytest.raises(KeyError, match="item 13"):
+        get("xlstm-350m")
     arch = get("qwen1.5-0.5b", smoke=True)
-    moe = Arch(cfg=dataclasses.replace(arch.cfg, family="moe", n_experts=4), module=arch.module)
+    ssm = Arch(cfg=dataclasses.replace(arch.cfg, family="ssm"), module=arch.module)
     with pytest.raises(NotImplementedError, match="item 13"):
-        moe.init(torch.Generator())
+        ssm.init(torch.Generator())
     with pytest.raises(NotImplementedError, match="item 13"):
-        moe.prefill({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+        ssm.prefill({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
 
 
 def test_make_batch_draws_the_reference_batch():
@@ -238,4 +249,4 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         arch.init_cache(1, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        params_from_numpy({"w": np.zeros(2, np.float32)}, arch.cfg)
+        params_from_numpy({"w": np.zeros(2, np.float32)})

@@ -429,7 +429,7 @@ def _float32_archs(seed=2):
     port = Arch(cfg=ModelConfig(**dataclasses.asdict(cfg)),
                 module=get("qwen1.5-0.5b", smoke=True).module)
     rp = ref.init(jax.random.key(seed))
-    return ref, rp, port, params_from_numpy(jax.tree.map(np.asarray, rp), port.cfg, CPU)
+    return ref, rp, port, params_from_numpy(jax.tree.map(np.asarray, rp), CPU)
 
 
 def test_closed_loop_telemetry_matches_reference():
