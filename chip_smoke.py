@@ -98,23 +98,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    torch.profiler, and one ``CodedShardReader`` shard of 2 × 4,097 tokens
    written and read back through the proxy; K1's launches on the path
    must cover every encode and decode group.
-13. families — run right after phase 12: the moe, vlm and encdec families
-   at their published widths through the same entry points. mixtral-8x7b
-   cut to 8 layers (11.87 B seeded parameters, 23.74 GB; 32 do not fit the
-   card) and pixtral-12b whole (40 layers, 24.55 GB, the reference's zero
-   1,024-patch prefix in front of every prompt) each served through the
-   closed loop, 3 rounds of 8 keys with 1,024-token prompts and 16
-   generated tokens, and whisper-base whole, 3 rounds of 32 with 432-token
-   prompts (its decoder's 448-token context), each checked as phase 6
-   checks its rounds and profiled as it is; mixtral's decode-vs-prefill
-   continuation at the reference's 0.08; mixtral cut to 2 layers trained 3
-   AdamW steps at seq 4,096 × batch 1 with capacity routing (losses and
-   aux loss finite, the aux loss near 1 a layer at init; no checkpoint);
-   whisper-base trained at seq 448 × batch 16 through phase 12's protocol
-   (checkpoints at (8, 4), a restart from 6 of 8 strips per leaf, the
-   final loss equal to the straight run's to rel = 1e-4). K1's launches on
-   the path must cover every round and every whisper encode and decode
-   group.
+13. families — run right after phase 12: the moe, vlm, encdec and ssm
+   families at their published widths through the same entry points.
+   mixtral-8x7b cut to 8 layers (11.87 B seeded parameters, 23.74 GB; 32 do
+   not fit the card) and pixtral-12b cut to 20 of its 40 layers (the
+   reference's zero 1,024-patch prefix in front of every prompt) each served
+   through the closed loop, 3 rounds of 8 keys with 1,024-token prompts and
+   16 generated tokens; whisper-base whole, 3 rounds of 32 with 432-token
+   prompts (its decoder's 448-token context); xlstm-350m whole (24 layers,
+   18 mLSTM and 6 sLSTM), 3 rounds of 32 with 1,024-token prompts; each
+   checked as phase 6 checks its rounds and profiled as it is; mixtral's
+   and xlstm's decode-vs-prefill continuation at the reference's 0.08;
+   mixtral cut to 2 layers trained 3 AdamW steps at seq 4,096 × batch 1
+   with capacity routing (losses and aux loss finite, the aux loss near 1 a
+   layer at init; no checkpoint); xlstm-350m cut to 4 layers (3 mLSTM and 1
+   sLSTM) at seq 1,024 × batch 8 and whisper-base at seq 448 × batch 16,
+   each trained through phase 12's protocol (checkpoints at (8, 4), a
+   restart from 6 of 8 strips per leaf, the final loss equal to the
+   straight run's to rel = 1e-4). K1's launches on the path must cover
+   every round and every xlstm and whisper encode and decode group.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``. Without a card it
@@ -129,6 +131,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -615,14 +618,26 @@ def run_fleet(device, *, count: int = FLEET_COUNT) -> dict:
     return rec
 
 
+class DeviceEvent(NamedTuple):
+    """One kernel or copy of a profile: its name and interval (µs)."""
+    name: str
+    start_us: float
+    end_us: float
+
+
 def device_spans(prof):
     """(busy ms, device events) of a profile: the union of the intervals of
-    its device-side events (kernels and copies)."""
+    its device-side events (kernels and copies), read from the profiler's
+    raw results. (``prof.events()`` would first build a Python object for
+    every host and device event and link them: host time that grows with
+    the event count, ~10^5 kernels in an xlstm prefill.)"""
     from torch.autograd import DeviceType
 
-    events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    events = [DeviceEvent(ev.name(), ev.start_ns() / 1e3, ev.end_ns() / 1e3)
+              for ev in prof.profiler.kineto_results.events()
+              if ev.device_type() == DeviceType.CUDA]
     busy_us, end = 0.0, float("-inf")
-    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in events):
+    for s, e in sorted((ev.start_us, ev.end_us) for ev in events):
         busy_us += max(0.0, e - max(s, end))
         end = max(end, e)
     return busy_us / 1e3, events
@@ -645,16 +660,11 @@ def profile_chunk(label: str, run, rows: int, count: int) -> dict:
     if busy_ms <= 0:
         raise AssertionError(f"the profiler recorded no device time for the {label} chunk")
     kernels = [ev for ev in events if not ev.name.startswith(("Memcpy", "Memset"))]
-    by_name: dict[str, list] = {}
-    for ev in kernels:
-        row = by_name.setdefault(ev.name, [ev.name, 0, 0.0])
-        row[1] += 1
-        row[2] += (ev.time_range.end - ev.time_range.start) / 1e3
     rec = {"cases": rows, "count": count, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": 1.0 - busy_ms / wall_ms, "device_kernels": len(kernels),
            "kernels_per_step": len(kernels) / count, "ms_per_step": wall_ms / count,
            "copies": len(events) - len(kernels),
-           "top": sorted(by_name.values(), key=lambda r: -r[2])[:8]}
+           "top": _device_top(kernels, 8)}
     print(f"[profile] one {label} chunk ({rows} cases x {count} steps) under the profiler: "
           f"{wall_ms:.3f} ms wall ({rec['ms_per_step']:.4f} ms per scan step), {busy_ms:.3f} ms "
           f"device busy, idle share {rec['device_idle_share']:.4f}, {len(kernels)} device "
@@ -1079,14 +1089,9 @@ def profile_decode(step, rows, present, n: int, k: int, q: float) -> dict:
     busy_ms, events = device_spans(prof)
     if busy_ms <= 0:
         raise AssertionError("the profiler recorded no device time for the fused step")
-    by_name: dict[str, list] = {}
-    for ev in events:
-        row = by_name.setdefault(ev.name, [ev.name, 0, 0.0])
-        row[1] += 1
-        row[2] += (ev.time_range.end - ev.time_range.start) / 1e3
-    top = sorted(by_name.values(), key=lambda r: -r[2])
     rec = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "device_idle_share": 1.0 - busy_ms / wall_ms, "top": top[:8], "pick": list(pick)}
+           "device_idle_share": 1.0 - busy_ms / wall_ms, "top": _device_top(events, 8),
+           "pick": list(pick)}
     print(f"[profile] fused decode of {rows.shape[0]} objects: {wall_ms:.3f} ms wall, "
           f"{busy_ms:.3f} ms device busy, idle share {rec['device_idle_share']:.4f}", flush=True)
     for name, count, ms in rec["top"]:
@@ -1164,7 +1169,7 @@ def run_serve(device, *, smoke: bool = False, model: str = SERVE_MODEL,
                  "kv_cache_bytes": kv_bytes, "init_s": time.monotonic() - t0, "rounds": []}
     print(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
           f"heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}; {n_params:,} parameters "
-          f"({param_bytes / 1e9:.3f} GB) from seed {seed} in {rec['init_s']:.3f} s; KV cache "
+          f"({param_bytes / 1e9:.3f} GB) from seed {seed} in {rec['init_s']:.3f} s; cache "
           f"{per_round} x {max_seq} = {kv_bytes / 1e9:.3f} GB", flush=True)
 
     cls_ = request_class()
@@ -1376,7 +1381,7 @@ def _device_top(events, n: int) -> list:
     for ev in events:
         row = by_name.setdefault(ev.name, [ev.name, 0, 0.0])
         row[1] += 1
-        row[2] += (ev.time_range.end - ev.time_range.start) / 1e3
+        row[2] += (ev.end_us - ev.start_us) / 1e3
     return sorted(by_name.values(), key=lambda r: -r[2])[:n]
 
 
@@ -1413,6 +1418,8 @@ def profile_serve_round(serve, engine, prompts, ids: list[int], warm: list[dict]
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.tree import tree_map
+
     torch.cuda.synchronize()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     rnd = serve(-1, ids, prof)
@@ -1443,8 +1450,8 @@ def profile_serve_round(serve, engine, prompts, ids: list[int], warm: list[dict]
     pre_ms, pre_busy, _ = _stream_and_device_ms(
         lambda: arch.prefill_tokens(params, toks, max_seq=engine.max_seq))
 
-    def decode():  # on a fresh copy of the primed cache: decode_step writes in place
-        engine.continue_greedy(logits, {k: v.clone() for k, v in cache.items()}, steps)
+    def decode():  # on a fresh copy of the primed cache: decode_step may write in place
+        engine.continue_greedy(logits, tree_map(torch.clone, cache), steps)
 
     dec_ms, dec_busy, dec_events = _stream_and_device_ms(decode)
     n_dec = steps - 1
@@ -1758,11 +1765,12 @@ def _mem_total_gb() -> float:
     raise RuntimeError("no MemTotal in /proc/meminfo")
 
 
-def run_train(device, *, smoke: bool = False, model: str = SERVE_MODEL, seq: int = TRAIN_SEQ,
-              batch: int = TRAIN_BATCH, seed: int = 0, tag: str = "[train]") -> dict:
+def run_train(device, *, smoke: bool = False, model: str = SERVE_MODEL,
+              layers: int | None = None, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
+              seed: int = 0, tag: str = "[train]") -> dict:
     """The training path through ``Trainer`` with ``model`` (its smoke
-    config with ``smoke``) on seeded random weights, every line printed
-    under ``tag``, erasure-coded
+    config with ``smoke``; its depth cut to ``layers`` if given) on seeded
+    random weights, every line printed under ``tag``, erasure-coded
     checkpoints through ``AsyncCheckpointer`` (K1 encode on a card) and a
     restart from 6 of 8 strips (K1 decode).
 
@@ -1793,7 +1801,7 @@ def run_train(device, *, smoke: bool = False, model: str = SERVE_MODEL, seq: int
     from repro_torch.train import Trainer, TrainerConfig
     from repro_torch.tree import tree_flatten
 
-    arch = get(model, smoke=smoke)
+    arch = cut(get(model, smoke=smoke), layers)
     cfg = arch.cfg
     shape = ShapeSpec("train_4k_cut", "train", seq=seq, batch=batch)
     tc = TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY, log_every=1,
@@ -2007,15 +2015,18 @@ def run_train(device, *, smoke: bool = False, model: str = SERVE_MODEL, seq: int
     return rec
 
 
-#: The ``[families]`` phase: the moe, vlm and encdec families at their
+#: The ``[families]`` phase: the moe, vlm, encdec and ssm families at their
 #: published widths, only depth and traffic cut (PERF.md §4). Serving runs,
 #: each (model, layers (None: all), rows a round, prompt tokens, max_seq):
 #: mixtral-8x7b cut from 32 layers to 8 (93 GB in bfloat16 does not fit the
-#: card), pixtral-12b whole with 1,024 prompt tokens behind its 1,024-patch
-#: zero prefix, whisper-base whole at its decoder's 448-token context.
+#: card), pixtral-12b cut from 40 layers to 20 (the smoke's time limit) with
+#: 1,024 prompt tokens behind its 1,024-patch zero prefix, whisper-base whole
+#: at its decoder's 448-token context, xlstm-350m whole at the ``[serve]``
+#: deployment's 32 rows x 1,024 tokens (its cache has no sequence length).
 FAMILY_SERVES = (("mixtral-8x7b", 8, 8, 1024, 1024 + 16),
-                 ("pixtral-12b", None, 8, 1024, 1024 + 1024 + 16),
-                 ("whisper-base", None, 32, 432, 432 + 16))
+                 ("pixtral-12b", 20, 8, 1024, 1024 + 1024 + 16),
+                 ("whisper-base", None, 32, 432, 432 + 16),
+                 ("xlstm-350m", None, 32, 1024, 1024 + 16))
 FAMILY_ROUNDS, FAMILY_STEPS = 3, 16
 #: mixtral-8x7b trained at 2 layers, seq 4,096 x batch 1 (``train_4k``'s
 #: length), capacity routing at its cf 1.25, no checkpoint (its state would
@@ -2023,6 +2034,10 @@ FAMILY_ROUNDS, FAMILY_STEPS = 3, 16
 #: 448-token context x batch 16.
 MOE_TRAIN_LAYERS, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2, 4096, 3
 WHISPER_TRAIN_SEQ, WHISPER_TRAIN_BATCH = 448, 16
+#: xlstm-350m trained through ``run_train`` at full width cut to 4 layers (3
+#: mLSTM + 1 sLSTM; the sLSTM dispatches ~22 kernels a position forward and
+#: twice that backward, and the smoke has a time limit), seq 1,024 x batch 8.
+XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_BATCH = 4, 1024, 8
 
 
 def _empty_cache(device) -> None:
@@ -2145,17 +2160,18 @@ def run_moe_train(device, *, smoke: bool = False, seq: int = MOE_TRAIN_SEQ) -> d
 
 
 def run_families(device) -> dict:
-    """The moe, vlm and encdec families through the port's entry points at
-    their published widths (see :data:`FAMILY_SERVES`): each model served
+    """The moe, vlm, encdec and ssm families through the port's entry points
+    at their published widths (see :data:`FAMILY_SERVES`): each model served
     through the closed loop (``run_serve``: every round's tokens equal to
     ``ServingEngine.generate``'s, picks equal to the host policy's, one
     bucket, K1 launched in every round; one profiled round, the prefill and
-    a decode step alone), mixtral's decode-vs-prefill continuation, mixtral
-    trained at 2 layers (:func:`run_moe_train`), and whisper trained through
-    the ``[train]`` protocol (``run_train``: checkpoints at (8, 4), a restart
-    from 6 of 8 strips per leaf, the restarted final loss equal to the
-    straight run's to rel 1e-4). Each model is dropped and the allocator's
-    cache emptied before the next."""
+    a decode step alone), mixtral's and xlstm's decode-vs-prefill
+    continuation, mixtral trained at 2 layers (:func:`run_moe_train`), and
+    xlstm (4 layers) and whisper trained through the ``[train]`` protocol
+    (``run_train``: checkpoints at (8, 4), a restart from 6 of 8 strips per
+    leaf, the restarted final loss equal to the straight run's to rel
+    1e-4). Each model is dropped and the allocator's cache emptied before
+    the next."""
     rec: dict = {"serve": {}, "wall_s": {}}
 
     def timed(key: str, tag: str, fn):
@@ -2176,6 +2192,12 @@ def run_families(device) -> dict:
             timed("continuation", "[families] mixtral continuation", lambda: check_continuation(
                 device, model, layers))
             timed("moe_train", "[families] mixtral train", lambda: run_moe_train(device))
+        if model == "xlstm-350m":
+            timed("xlstm_continuation", "[families] xlstm continuation",
+                  lambda: check_continuation(device, model, layers))
+            timed("xlstm_train", "[families] xlstm train", lambda: run_train(
+                device, model=model, layers=XLSTM_TRAIN_LAYERS, seq=XLSTM_TRAIN_SEQ,
+                batch=XLSTM_TRAIN_BATCH, tag="[families] xlstm train"))
     timed("whisper_train", "[families] whisper train", lambda: run_train(
         device, model="whisper-base", seq=WHISPER_TRAIN_SEQ, batch=WHISPER_TRAIN_BATCH,
         tag="[families] whisper train"))
@@ -2261,14 +2283,14 @@ def main() -> int:
     families = run_families(device)
     families_launches = gf2mm.gf2_rs_matmul_bytes.launches
     print(f"[families] the phase: {time.monotonic() - t0:.1f} s wall", flush=True)
-    wt = families["whisper_train"]
-    need = (len(FAMILY_SERVES) * FAMILY_ROUNDS + 4 * wt["encode_groups"]
-            + wt["restore"]["decode_groups"])
+    trained = [(name, families[f"{name}_train"]) for name in ("xlstm", "whisper")]
+    need = len(FAMILY_SERVES) * FAMILY_ROUNDS + sum(
+        4 * t["encode_groups"] + t["restore"]["decode_groups"] for _, t in trained)
+    groups = " + ".join(f"4 {name} checkpoints x {t['encode_groups']} encode groups + "
+                        f"{t['restore']['decode_groups']} decode groups" for name, t in trained)
     print(f"[families] K1 launches on the families path: {families_launches} ("
-          f"{len(FAMILY_SERVES)} models x {FAMILY_ROUNDS} rounds + 4 whisper checkpoints x "
-          f"{wt['encode_groups']} encode groups + {wt['restore']['decode_groups']} decode groups "
-          f"= {need}, then the profiled rounds, the proxies' codec calls and the shard)",
-          flush=True)
+          f"{len(FAMILY_SERVES)} models x {FAMILY_ROUNDS} rounds + {groups} = {need}, then the "
+          "profiled rounds, the proxies' codec calls and the shards)", flush=True)
     if families_launches < need:
         raise AssertionError(f"K1 launched {families_launches} times on the families path, "
                              f"expected at least {need}")

@@ -1,11 +1,10 @@
 """Exact per-architecture configs of the ported families (one module each).
 
 Copies of the reference package's ``repro/configs`` modules for the dense,
-moe, vlm and encdec families, in the reference's order. Import side-effect
-free; each module exports ``CONFIG`` plus a ``smoke_config()`` returning a
-reduced same-family config for CPU tests. The ssm and hybrid configs
-(xlstm-350m, zamba2-2.7b) wait for the port of their families (ROADMAP
-item 13).
+moe, vlm, encdec and ssm families, in the reference's order. Import
+side-effect free; each module exports ``CONFIG`` plus a ``smoke_config()``
+returning a reduced same-family config for CPU tests. The hybrid config
+(zamba2-2.7b) waits for the port of its family (ROADMAP item 13d).
 """
 
 from repro_torch.configs import (
@@ -16,11 +15,12 @@ from repro_torch.configs import (
     pixtral_12b,
     qwen1_5_0_5b,
     whisper_base,
+    xlstm_350m,
     yi_6b,
 )
 
-_MODULES = [whisper_base, gemma2_2b, mistral_nemo_12b, yi_6b, qwen1_5_0_5b, pixtral_12b,
-            grok_1_314b, mixtral_8x7b]
+_MODULES = [whisper_base, xlstm_350m, gemma2_2b, mistral_nemo_12b, yi_6b, qwen1_5_0_5b,
+            pixtral_12b, grok_1_314b, mixtral_8x7b]
 
 ALL_CONFIGS = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

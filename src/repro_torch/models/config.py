@@ -5,8 +5,8 @@ no JAX; the port keeps its own copy so it never imports the reference). One
 frozen dataclass parameterizes every family (dense / moe / ssm / hybrid /
 encdec / vlm); family-specific behavior keys off these fields inside the
 model implementations. The port's per-arch instantiations live in
-``repro_torch/configs/<id>.py`` (the dense family so far) and are
-registered in :mod:`repro_torch.models.registry`.
+``repro_torch/configs/<id>.py`` and are registered in
+:mod:`repro_torch.models.registry`.
 """
 
 from __future__ import annotations

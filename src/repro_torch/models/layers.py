@@ -39,10 +39,13 @@ def dt(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype, device=None):
+def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype, device=None,
+               scale: float | None = None):
+    """A (d_in, d_out) normal draw times ``scale`` (default 1/√d_in)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
                     device=device or gen.device)
-    return (w * (1.0 / math.sqrt(d_in))).to(dtype)
+    return (w * scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------

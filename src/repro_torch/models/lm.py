@@ -38,7 +38,7 @@ from repro_torch import resolve_device
 from repro_torch.models import layers as ly
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 AUX_LOSS_WEIGHT = 0.01
 LOSS_CHUNK = 512
@@ -52,7 +52,7 @@ def _require_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: this module runs the {', '.join(FAMILIES)} families, not "
-            f"{cfg.family!r} (the ssm and hybrid families wait for ROADMAP.md item 13)")
+            f"{cfg.family!r} (the hybrid family waits for ROADMAP.md item 13d)")
 
 
 def _layer_windows(cfg: ModelConfig) -> list[int]:
@@ -71,8 +71,8 @@ def _layer_windows(cfg: ModelConfig) -> list[int]:
 def _unstack(stacked, n: int) -> list:
     """The per-layer parameter trees of a stacked tree: each leaf unbound
     once along its layer axis."""
-    parts = tree_map(torch.unbind, stacked)
-    return [tree_map(lambda t, i=i: t[i], parts) for i in range(n)]
+    parts = [torch.unbind(t) for t in tree_leaves(stacked)]
+    return [tree_unflatten(stacked, [p[i] for p in parts]) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------

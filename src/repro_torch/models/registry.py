@@ -1,7 +1,7 @@
 """Architecture registry: one API over the port's model families.
 
 Mirrors the reference package's ``repro/models/registry.py`` for the dense,
-moe, vlm and encdec families (ssm and hybrid wait for ROADMAP item 13).
+moe, vlm, encdec and ssm families (hybrid waits for ROADMAP item 13d).
 Every entry exposes
 ``init(generator, device)``, ``train_loss(params, batch)``,
 ``prefill(params, batch, max_seq)``,
@@ -20,11 +20,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import encdec, lm
+from repro_torch.models import encdec, lm, xlstm
 from repro_torch.models.config import ModelConfig, ShapeSpec
 from repro_torch.tree import tree_map
 
-_FAMILY_MODULES = {**{family: lm for family in lm.FAMILIES}, "encdec": encdec}
+_FAMILY_MODULES = {**{family: lm for family in lm.FAMILIES}, "encdec": encdec, "ssm": xlstm}
 
 
 def zero_extras(cfg: ModelConfig, tokens: torch.Tensor) -> dict:
@@ -86,8 +86,8 @@ def _configs(smoke: bool):
 def get(name: str, smoke: bool = False) -> Arch:
     cfgs = _configs(smoke)
     if name not in cfgs:
-        raise KeyError(f"unknown arch {name!r}; the port has {sorted(cfgs)} (the ssm and "
-                       "hybrid families wait for ROADMAP.md item 13)")
+        raise KeyError(f"unknown arch {name!r}; the port has {sorted(cfgs)} (the hybrid "
+                       "family waits for ROADMAP.md item 13d)")
     cfg = cfgs[name]
     return Arch(cfg=cfg, module=_FAMILY_MODULES[cfg.family])
 

@@ -1,0 +1,267 @@
+"""Recurrent sequence blocks of the xLSTM: mLSTM and sLSTM.
+
+Mirrors ``repro/models/ssm.py:36-298`` of the reference package. The
+parallel-form mLSTM rests on one primitive, a chunked linear recurrence
+(scalar per-(head, t) decay, rank-1 state updates):
+
+    S_t = a_t · S_{t-1} + i_t · k_t v_tᵀ          (state: (dk, dv))
+    n_t = a_t · n_{t-1} + i_t · k_t               (optional normalizer)
+    y_t = qₜᵀ S_t   [ / max(|qₜᵀ n_t|, 1) ]
+
+computed chunk-parallel: within a chunk through a (c × c) decay-masked
+attention matrix, across chunks by a Python loop carrying (S, n) (the
+reference's ``lax.scan``). Decays stay in log space and are ≤ 0, so every
+exp() of a kept entry is ≤ 1. Every product is float32, as the reference's.
+The sLSTM is a per-position recurrence with the xLSTM's max-stabilizer,
+run as a Python loop over positions. Decode forms are the exact O(1)
+recurrences and return new states (the reference's copies).
+
+The Mamba2 (SSD) functions of the same reference module
+(``ssm.py:301-420``) wait for ROADMAP item 13d.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dt, init_dense
+
+# ---------------------------------------------------------------------------
+# Chunked linear recurrence primitive
+# ---------------------------------------------------------------------------
+
+
+def chunk_linear_recurrence(
+    q: torch.Tensor,  # (B, S, H, dk)
+    k: torch.Tensor,  # (B, S, H, dk)
+    v: torch.Tensor,  # (B, S, H, dv)
+    log_a: torch.Tensor,  # (B, S, H) decay, ≤ 0
+    gate_i: torch.Tensor,  # (B, S, H) input gate, ≥ 0
+    *,
+    chunk: int,
+    init_state: tuple[torch.Tensor, torch.Tensor] | None = None,
+    normalize: bool = False,
+    unroll: bool = False,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Returns (y: (B,S,H,dv) float32, final (S_state: (B,H,dk,dv), n: (B,H,dk))).
+
+    ``unroll`` is the reference's ``lax.scan`` flag; the loop here is
+    always unrolled, so it changes nothing."""
+    del unroll
+    B, S, H, dk = q.shape
+    dv = v.shape[-1]
+    c = min(chunk, S)
+    S_real = S
+    if S % c != 0:
+        # Pad to a chunk multiple: decay 1 (log_a = 0) and gate 0 make the
+        # padded steps exact no-ops on the state; outputs are trimmed.
+        pad = c - S % c
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        log_a, gate_i = (F.pad(t, (0, 0, 0, pad)) for t in (log_a, gate_i))
+        S += pad
+    f32 = torch.float32
+    if init_state is None:
+        S_prev = torch.zeros((B, H, dk, dv), dtype=f32, device=q.device)
+        n_prev = torch.zeros((B, H, dk), dtype=f32, device=q.device)
+    else:
+        S_prev, n_prev = init_state
+    tri = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()[None, :, :, None]
+    ys = []
+    for i in range(S // c):
+        sl = slice(i * c, (i + 1) * c)
+        qc, kc, vc = q[:, sl].to(f32), k[:, sl].to(f32), v[:, sl].to(f32)  # (B, c, H, ·)
+        la, gi = log_a[:, sl], gate_i[:, sl]
+        cum = torch.cumsum(la, dim=1)  # (B, c, H) inclusive log-decay products
+        # Decay from s to t (applying a_{s+1..t}) is exp(cum_t − cum_s), s ≤ t.
+        d_ts = cum[:, :, None, :] - cum[:, None, :, :]  # (B, t, s, H)
+        D = torch.where(tri, torch.exp(d_ts), 0.0) * gi[:, None, :, :]
+        scores = torch.einsum("bthd,bshd->btsh", qc, kc)
+        w = scores * D  # (B, t, s, H)
+        y_intra = torch.einsum("btsh,bshv->bthv", w, vc)
+        carry_decay = torch.exp(cum)  # (B, c, H): decay from chunk start to t
+        y_inter = torch.einsum("bthd,bhdv->bthv", qc * carry_decay[..., None], S_prev)
+        y = y_intra + y_inter
+        if normalize:
+            n_intra = torch.einsum("btsh,bshd->bthd", D, kc)
+            n_t = n_intra + carry_decay[..., None] * n_prev[:, None]
+            denom = torch.abs(torch.einsum("bthd,bthd->bth", qc, n_t))
+            y = y / torch.clamp(denom, min=1.0)[..., None]
+        # State update to chunk end.
+        total = cum[:, -1:, :]  # (B, 1, H)
+        rem = torch.exp(total - cum) * gi  # (B, s, H): decay from s to chunk end
+        S_prev = torch.exp(total[:, 0])[..., None, None] * S_prev + torch.einsum(
+            "bshd,bshv->bhdv", kc * rem[..., None], vc)
+        n_prev = torch.exp(total[:, 0])[..., None] * n_prev + torch.einsum(
+            "bshd,bsh->bhd", kc, rem)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :S_real]
+    return y, (S_prev, n_prev)
+
+
+def linear_recurrence_step(q, k, v, log_a, gate_i, state, n_state, *, normalize: bool = False):
+    """Exact single-step decode. q/k: (B,H,dk), v: (B,H,dv), gates: (B,H)."""
+    f32 = torch.float32
+    a = torch.exp(log_a.to(f32))[..., None]
+    gi = gate_i.to(f32)
+    kf = k.to(f32)
+    kv = kf[..., :, None] * v.to(f32)[..., None, :]
+    state = a[..., None] * state + gi[..., None, None] * kv
+    n_state = a * n_state + gi[..., None] * kf
+    qf = q.to(f32)
+    y = torch.einsum("bhd,bhdv->bhv", qf, state)
+    if normalize:
+        denom = torch.abs(torch.einsum("bhd,bhd->bh", qf, n_state))
+        y = y / torch.clamp(denom, min=1.0)[..., None]
+    return y, state, n_state
+
+
+# ---------------------------------------------------------------------------
+# mLSTM block (xLSTM)
+# ---------------------------------------------------------------------------
+
+
+def init_mlstm(gen: torch.Generator, cfg: ModelConfig, device=None):
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    dtype, dev = dt(cfg), device or gen.device
+    return {
+        "w_up": init_dense(gen, d, di, dtype, dev),
+        "w_qkv": init_dense(gen, di, 3 * di, dtype, dev),
+        "w_if": init_dense(gen, di, 2 * cfg.n_heads, dtype, dev),
+        # Input-gate biases 0, forget-gate biases 3 (a forget gate near 0.95).
+        "b_if": torch.cat([torch.zeros((cfg.n_heads,), device=dev),
+                           torch.full((cfg.n_heads,), 3.0, device=dev)]).to(dtype),
+        "w_og": init_dense(gen, d, di, dtype, dev),
+        "w_down": init_dense(gen, di, d, dtype, dev),
+    }
+
+
+def _mlstm_gates(params, cfg: ModelConfig, h):
+    """(input gate, log forget gate), float32, from ``h @ w_if + b_if`` in
+    the model's dtype."""
+    H = cfg.n_heads
+    gf = h @ params["w_if"] + params["b_if"]
+    i_t = torch.sigmoid(gf[..., :H].to(torch.float32))
+    log_f = F.logsigmoid(gf[..., H:].to(torch.float32))
+    return i_t, log_f
+
+
+def _query_scale(hd: int, dtype: torch.dtype) -> float:
+    """√hd as the reference divides by it: a Python scalar in a JAX
+    expression takes the array's dtype, so a bfloat16 model divides by √hd
+    rounded to bfloat16 (22.625 for hd = 512)."""
+    return float(torch.tensor(math.sqrt(hd), dtype=dtype))
+
+
+def _mlstm_qkv(params, cfg: ModelConfig, h, lead: tuple[int, ...]):
+    """q (scaled), k, v of the up-projected ``h``, each (*lead, H, hd)."""
+    H = cfg.n_heads
+    hd = cfg.ssm_expand * cfg.d_model // H
+    q, k, v = torch.chunk(h @ params["w_qkv"], 3, dim=-1)
+    q = q.reshape(*lead, H, hd) / _query_scale(hd, q.dtype)
+    return q, k.reshape(*lead, H, hd), v.reshape(*lead, H, hd)
+
+
+def mlstm_block(params, cfg: ModelConfig, x, state=None):
+    """x: (B, S, d). Returns (y, new_state)."""
+    B, S, d = x.shape
+    di = cfg.ssm_expand * d
+    h = x @ params["w_up"]
+    q, k, v = _mlstm_qkv(params, cfg, h, (B, S))
+    i_t, log_f = _mlstm_gates(params, cfg, h)
+    y, new_state = chunk_linear_recurrence(
+        q, k, v, log_f, i_t, chunk=cfg.ssm_chunk, init_state=state, normalize=True,
+        unroll=cfg.scan_unroll)
+    og = torch.sigmoid((x @ params["w_og"]).to(torch.float32))
+    out = (y.reshape(B, S, di) * og).to(x.dtype)
+    return out @ params["w_down"], new_state
+
+
+def mlstm_decode_step(params, cfg: ModelConfig, x, state):
+    """x: (B, 1, d); state: (S_state, n_state)."""
+    B, _, d = x.shape
+    di = cfg.ssm_expand * d
+    h = (x @ params["w_up"])[:, 0]
+    q, k, v = _mlstm_qkv(params, cfg, h, (B,))
+    i_t, log_f = _mlstm_gates(params, cfg, h)
+    S_state, n_state = state
+    y, S_state, n_state = linear_recurrence_step(q, k, v, log_f, i_t, S_state, n_state,
+                                                 normalize=True)
+    og = torch.sigmoid((x[:, 0] @ params["w_og"]).to(torch.float32))
+    out = (y.reshape(B, di) * og).to(x.dtype) @ params["w_down"]
+    return out[:, None], (S_state, n_state)
+
+
+def mlstm_state_init(cfg: ModelConfig, B: int, device=None):
+    H = cfg.n_heads
+    hd = cfg.ssm_expand * cfg.d_model // H
+    return (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=device),
+            torch.zeros((B, H, hd), dtype=torch.float32, device=device))
+
+
+# ---------------------------------------------------------------------------
+# sLSTM block (xLSTM) — sequential scalar-memory recurrence
+# ---------------------------------------------------------------------------
+
+
+def init_slstm(gen: torch.Generator, cfg: ModelConfig, device=None):
+    d = cfg.d_model
+    dtype, dev = dt(cfg), device or gen.device
+    return {
+        "w_x": init_dense(gen, d, 4 * d, dtype, dev),  # z, i, f, o pre-acts
+        "r_h": init_dense(gen, d, 4 * d, dtype, dev, scale=1.0 / math.sqrt(d) * 0.5),
+        "b": torch.zeros((4 * d,), dtype=dtype, device=dev),
+        "w_down": init_dense(gen, d, d, dtype, dev),
+    }
+
+
+def _slstm_cell(params, xw_t, st):
+    """One stabilized sLSTM step. xw_t: (B, 4d) precomputed x-projection.
+    The pre-activation is two adds in the model's dtype, then float32; the
+    carried ``h`` goes back to the model's dtype, the returned one stays
+    float32."""
+    h, c, n, m = st
+    pre = xw_t + h @ params["r_h"] + params["b"]
+    z, it, ft, ot = torch.chunk(pre.to(torch.float32), 4, dim=-1)
+    z = torch.tanh(z)
+    o = torch.sigmoid(ot)
+    log_f_m = F.logsigmoid(ft) + m
+    m_new = torch.maximum(log_f_m, it)
+    i_p = torch.exp(it - m_new)
+    f_p = torch.exp(log_f_m - m_new)
+    c = f_p * c + i_p * z
+    n = f_p * n + i_p
+    h_new = o * c / torch.clamp(n, min=1.0)
+    return (h_new.to(xw_t.dtype), c, n, m_new), h_new
+
+
+def slstm_block(params, cfg: ModelConfig, x, state=None):
+    """x: (B, S, d). Returns (y, new_state); one cell step per position."""
+    B, S, _ = x.shape
+    xw = x @ params["w_x"]  # (B, S, 4d)
+    st = state if state is not None else slstm_state_init(cfg, B, device=x.device)
+    hs = []
+    for t in range(S):
+        st, h = _slstm_cell(params, xw[:, t], st)
+        hs.append(h)
+    y = torch.stack(hs, dim=1).to(x.dtype)  # (B, S, d)
+    return y @ params["w_down"], st
+
+
+def slstm_decode_step(params, cfg: ModelConfig, x, state):
+    xw = (x @ params["w_x"])[:, 0]
+    st, h = _slstm_cell(params, xw, state)
+    return (h.to(x.dtype) @ params["w_down"])[:, None], st
+
+
+def slstm_state_init(cfg: ModelConfig, B: int, device=None):
+    """(h, c, n, m): h in the model's dtype, the rest float32, the
+    stabilizer m at −30."""
+    def zeros(dtype=torch.float32):
+        return torch.zeros((B, cfg.d_model), dtype=dtype, device=device)
+
+    return (zeros(dt(cfg)), zeros(), zeros(), zeros() - 30.0)

@@ -1,40 +1,46 @@
-"""Trees of tensors (nested dicts and lists): the port's stand-in for
-``jax.tree``.
+"""Trees of tensors (nested dicts, lists and tuples): the port's stand-in
+for ``jax.tree``.
 
 The reference package's parameter, optimizer-state and batch trees are
-nested dicts, and the encoder-decoder keeps its blocks in lists.
-``jax.tree_util`` walks a dict in SORTED key order and a list in index
-order, and the order matters beyond style: the optimizer's global norm sums
-its leaves in that order, and a checkpoint names, groups and writes its
-leaves in it. So :func:`tree_flatten` walks them as JAX does, a list item's
-path entry being its index (an ``int``; ``"/".join(map(str, path))`` gives
-the reference checkpoint's leaf name, ``params/decoder/0/cross_attn/wq``);
-anything that is neither a dict nor a list is a leaf.
+nested dicts, the encoder-decoder and the xLSTM keep their blocks in lists,
+and the recurrent caches hold tuples (an sLSTM's ``(h, c, n, m)``, an
+mLSTM's ``(S, n)``). ``jax.tree_util`` walks a dict in SORTED key order and
+a list or tuple in index order, and the order matters beyond style: the
+optimizer's global norm sums its leaves in that order, and a checkpoint
+names, groups and writes its leaves in it. So :func:`tree_flatten` walks
+them as JAX does, a list or tuple item's path entry being its index (an
+``int``; ``"/".join(map(str, path))`` gives the reference checkpoint's leaf
+name, ``params/decoder/0/cross_attn/wq``); anything that is neither a dict,
+a list nor a tuple is a leaf.
 """
 
 from __future__ import annotations
 
+_SEQUENCES = (list, tuple)
+
 
 def tree_map(fn, tree, *rest):
-    """``fn`` applied leaf by leaf over ``tree`` and trees of its structure."""
+    """``fn`` applied leaf by leaf over ``tree`` and trees of its structure;
+    lists stay lists and tuples tuples."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    if isinstance(tree, _SEQUENCES):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
     return fn(tree, *rest)
 
 
 def _children(node) -> list:
-    """[(path entry, child)] of a dict (keys sorted) or a list (in order)."""
+    """[(path entry, child)] of a dict (keys sorted) or a list or tuple (in
+    order)."""
     if isinstance(node, dict):
         return [(k, node[k]) for k in sorted(node)]
     return list(enumerate(node))
 
 
 def tree_flatten(tree) -> list[tuple[tuple[str | int, ...], object]]:
-    """[(path, leaf)] in JAX's order: dict keys sorted, list items in order,
-    depth first."""
-    if not isinstance(tree, (dict, list)):
+    """[(path, leaf)] in JAX's order: dict keys sorted, list and tuple items
+    in order, depth first."""
+    if not isinstance(tree, (dict, *_SEQUENCES)):
         return [((), tree)]
     return [((k, *path), leaf) for k, child in _children(tree)
             for path, leaf in tree_flatten(child)]
@@ -52,8 +58,8 @@ def tree_unflatten(like, leaves):
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, list):
-            return [build(child) for child in node]
+        if isinstance(node, _SEQUENCES):
+            return type(node)(build(child) for child in node)
         return next(it)
 
     out = build(like)

@@ -27,8 +27,9 @@ from repro_torch.models.registry import Arch
 
 CPU = torch.device("cpu")
 DENSE = ["gemma2-2b", "mistral-nemo-12b", "yi-6b", "qwen1.5-0.5b"]
-#: The other families' configs the port runs (tests/test_torch_families.py).
-PORTED = ["mixtral-8x7b", "grok-1-314b", "pixtral-12b", "whisper-base"]
+#: The other families' configs the port runs (tests/test_torch_families.py,
+#: tests/test_torch_xlstm.py).
+PORTED = ["mixtral-8x7b", "grok-1-314b", "pixtral-12b", "whisper-base", "xlstm-350m"]
 TOL = {"float32": 1e-4, "bfloat16": 0.08}
 
 
@@ -184,7 +185,8 @@ def test_registry_lists_the_dense_family_with_the_reference_layout():
     """Every ported family's configs, in the reference's order, and each
     one's init shapes and dtypes against the reference's ``eval_shape``."""
     assert arch_names() == [n for n in ref_arch_names() if n in DENSE + PORTED]
-    with pytest.raises(KeyError, match="item 13"):
+    assert [n for n in ref_arch_names() if n not in DENSE + PORTED] == ["zamba2-2.7b"]
+    with pytest.raises(KeyError, match="item 13d"):
         get("zamba2-2.7b")
     for name in DENSE + PORTED:
         arch = get(name, smoke=True)
@@ -199,6 +201,9 @@ def test_registry_lists_the_dense_family_with_the_reference_layout():
         assert shapes == ref_shapes, name
         # The reference's distributions: zero norm scales and QKV biases.
         assert not params["ln_f"]["scale"].any()
+        if arch.cfg.family == "ssm":
+            assert not any(blk["ln"]["scale"].any() for blk in params["blocks"])
+            continue
         blocks = params["decoder"][0] if arch.cfg.family == "encdec" else params["layers"]
         assert not blocks["ln1"]["scale"].any()
         if arch.cfg.qkv_bias:
@@ -216,16 +221,16 @@ def test_init_is_seeded_and_scaled():
 
 
 def test_other_families_raise_naming_item_13():
-    """The ssm and hybrid families are not ported: their configs are not
-    registered, and ``lm`` refuses them."""
-    with pytest.raises(KeyError, match="item 13"):
-        get("xlstm-350m")
+    """The hybrid family is not ported (item 13d): its config is not
+    registered, and ``lm`` refuses it."""
+    with pytest.raises(KeyError, match="item 13d"):
+        get("zamba2-2.7b")
     arch = get("qwen1.5-0.5b", smoke=True)
-    ssm = Arch(cfg=dataclasses.replace(arch.cfg, family="ssm"), module=arch.module)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ssm.init(torch.Generator())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ssm.prefill({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    hybrid = Arch(cfg=dataclasses.replace(arch.cfg, family="hybrid"), module=arch.module)
+    with pytest.raises(NotImplementedError, match="item 13d"):
+        hybrid.init(torch.Generator())
+    with pytest.raises(NotImplementedError, match="item 13d"):
+        hybrid.prefill({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
 
 
 def test_make_batch_draws_the_reference_batch():
