@@ -98,25 +98,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    torch.profiler, and one ``CodedShardReader`` shard of 2 × 4,097 tokens
    written and read back through the proxy; K1's launches on the path
    must cover every encode and decode group.
-13. families — run right after phase 12: the moe, vlm, encdec and ssm
-   families at their published widths through the same entry points.
+13. families — run right after phase 12: the moe, vlm, encdec, ssm and
+   hybrid families at their published widths through the same entry points.
    mixtral-8x7b cut to 8 layers (11.87 B seeded parameters, 23.74 GB; 32 do
    not fit the card) and pixtral-12b cut to 20 of its 40 layers (the
    reference's zero 1,024-patch prefix in front of every prompt) each served
    through the closed loop, 3 rounds of 8 keys with 1,024-token prompts and
    16 generated tokens; whisper-base whole, 3 rounds of 32 with 432-token
    prompts (its decoder's 448-token context); xlstm-350m whole (24 layers,
-   18 mLSTM and 6 sLSTM), 3 rounds of 32 with 1,024-token prompts; each
-   checked as phase 6 checks its rounds and profiled as it is; mixtral's
-   and xlstm's decode-vs-prefill continuation at the reference's 0.08;
+   18 mLSTM and 6 sLSTM) and zamba2-2.7b whole (54 Mamba2 layers, the
+   shared attention block at 9 sites), each 3 rounds of 32 with 1,024-token
+   prompts; each checked as phase 6 checks its rounds and profiled as it
+   is; mixtral's, xlstm's and zamba2's decode-vs-prefill continuation at
+   the reference's 0.08;
    mixtral cut to 2 layers trained 3 AdamW steps at seq 4,096 × batch 1
    with capacity routing (losses and aux loss finite, the aux loss near 1 a
    layer at init; no checkpoint); xlstm-350m cut to 4 layers (3 mLSTM and 1
-   sLSTM) at seq 1,024 × batch 8 and whisper-base at seq 448 × batch 16,
-   each trained through phase 12's protocol (checkpoints at (8, 4), a
-   restart from 6 of 8 strips per leaf, the final loss equal to the
-   straight run's to rel = 1e-4). K1's launches on the path must cover
-   every round and every xlstm and whisper encode and decode group.
+   sLSTM) at seq 1,024 × batch 8, zamba2-2.7b cut to 6 layers (one
+   attention period) at seq 4,096 × batch 2 and whisper-base at seq 448 ×
+   batch 16, each trained through phase 12's protocol (checkpoints at
+   (8, 4), a restart from 6 of 8 strips per leaf, the final loss equal to
+   the straight run's to rel = 1e-4). K1's launches on the path must cover
+   every round and every xlstm, zamba2 and whisper encode and decode group.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``. Without a card it
@@ -2015,18 +2018,19 @@ def run_train(device, *, smoke: bool = False, model: str = SERVE_MODEL,
     return rec
 
 
-#: The ``[families]`` phase: the moe, vlm, encdec and ssm families at their
-#: published widths, only depth and traffic cut (PERF.md §4). Serving runs,
-#: each (model, layers (None: all), rows a round, prompt tokens, max_seq):
-#: mixtral-8x7b cut from 32 layers to 8 (93 GB in bfloat16 does not fit the
-#: card), pixtral-12b cut from 40 layers to 20 (the smoke's time limit) with
-#: 1,024 prompt tokens behind its 1,024-patch zero prefix, whisper-base whole
-#: at its decoder's 448-token context, xlstm-350m whole at the ``[serve]``
-#: deployment's 32 rows x 1,024 tokens (its cache has no sequence length).
+#: The ``[families]`` phase: the moe, vlm, encdec, ssm and hybrid families
+#: at their published widths, only depth and traffic cut (PERF.md §4).
+#: Serving runs, each (model, layers (None: all), rows a round, prompt
+#: tokens, max_seq): mixtral-8x7b cut from 32 layers to 8 (93 GB in bfloat16
+#: does not fit the card), pixtral-12b cut from 40 layers to 20 (the smoke's
+#: time limit) with 1,024 prompt tokens behind its 1,024-patch zero prefix,
+#: whisper-base whole at its decoder's 448-token context, xlstm-350m and
+#: zamba2-2.7b whole at the ``[serve]`` deployment's 32 rows x 1,024 tokens.
 FAMILY_SERVES = (("mixtral-8x7b", 8, 8, 1024, 1024 + 16),
                  ("pixtral-12b", 20, 8, 1024, 1024 + 1024 + 16),
                  ("whisper-base", None, 32, 432, 432 + 16),
-                 ("xlstm-350m", None, 32, 1024, 1024 + 16))
+                 ("xlstm-350m", None, 32, 1024, 1024 + 16),
+                 ("zamba2-2.7b", None, 32, 1024, 1024 + 16))
 FAMILY_ROUNDS, FAMILY_STEPS = 3, 16
 #: mixtral-8x7b trained at 2 layers, seq 4,096 x batch 1 (``train_4k``'s
 #: length), capacity routing at its cf 1.25, no checkpoint (its state would
@@ -2038,6 +2042,11 @@ WHISPER_TRAIN_SEQ, WHISPER_TRAIN_BATCH = 448, 16
 #: mLSTM + 1 sLSTM; the sLSTM dispatches ~22 kernels a position forward and
 #: twice that backward, and the smoke has a time limit), seq 1,024 x batch 8.
 XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_BATCH = 4, 1024, 8
+#: zamba2-2.7b trained through ``run_train`` at full width cut to 6 layers
+#: (one attention period: the shared block runs once; the whole model's
+#: state would be ~30 GB of checkpoint payload a save), at ``[train]``'s seq
+#: 4,096 x batch 2.
+ZAMBA2_TRAIN_LAYERS, ZAMBA2_TRAIN_SEQ, ZAMBA2_TRAIN_BATCH = 6, 4096, 2
 
 
 def _empty_cache(device) -> None:
@@ -2160,18 +2169,18 @@ def run_moe_train(device, *, smoke: bool = False, seq: int = MOE_TRAIN_SEQ) -> d
 
 
 def run_families(device) -> dict:
-    """The moe, vlm, encdec and ssm families through the port's entry points
-    at their published widths (see :data:`FAMILY_SERVES`): each model served
-    through the closed loop (``run_serve``: every round's tokens equal to
-    ``ServingEngine.generate``'s, picks equal to the host policy's, one
-    bucket, K1 launched in every round; one profiled round, the prefill and
-    a decode step alone), mixtral's and xlstm's decode-vs-prefill
-    continuation, mixtral trained at 2 layers (:func:`run_moe_train`), and
-    xlstm (4 layers) and whisper trained through the ``[train]`` protocol
-    (``run_train``: checkpoints at (8, 4), a restart from 6 of 8 strips per
-    leaf, the restarted final loss equal to the straight run's to rel
-    1e-4). Each model is dropped and the allocator's cache emptied before
-    the next."""
+    """The moe, vlm, encdec, ssm and hybrid families through the port's
+    entry points at their published widths (see :data:`FAMILY_SERVES`):
+    each model served through the closed loop (``run_serve``: every round's
+    tokens equal to ``ServingEngine.generate``'s, picks equal to the host
+    policy's, one bucket, K1 launched in every round; one profiled round,
+    the prefill and a decode step alone), mixtral's, xlstm's and zamba2's
+    decode-vs-prefill continuation, mixtral trained at 2 layers
+    (:func:`run_moe_train`), and xlstm (4 layers), zamba2 (6 layers) and
+    whisper trained through the ``[train]`` protocol (``run_train``:
+    checkpoints at (8, 4), a restart from 6 of 8 strips per leaf, the
+    restarted final loss equal to the straight run's to rel 1e-4). Each
+    model is dropped and the allocator's cache emptied before the next."""
     rec: dict = {"serve": {}, "wall_s": {}}
 
     def timed(key: str, tag: str, fn):
@@ -2198,6 +2207,12 @@ def run_families(device) -> dict:
             timed("xlstm_train", "[families] xlstm train", lambda: run_train(
                 device, model=model, layers=XLSTM_TRAIN_LAYERS, seq=XLSTM_TRAIN_SEQ,
                 batch=XLSTM_TRAIN_BATCH, tag="[families] xlstm train"))
+        if model == "zamba2-2.7b":
+            timed("zamba2_continuation", "[families] zamba2 continuation",
+                  lambda: check_continuation(device, model, layers))
+            timed("zamba2_train", "[families] zamba2 train", lambda: run_train(
+                device, model=model, layers=ZAMBA2_TRAIN_LAYERS, seq=ZAMBA2_TRAIN_SEQ,
+                batch=ZAMBA2_TRAIN_BATCH, tag="[families] zamba2 train"))
     timed("whisper_train", "[families] whisper train", lambda: run_train(
         device, model="whisper-base", seq=WHISPER_TRAIN_SEQ, batch=WHISPER_TRAIN_BATCH,
         tag="[families] whisper train"))
@@ -2283,7 +2298,7 @@ def main() -> int:
     families = run_families(device)
     families_launches = gf2mm.gf2_rs_matmul_bytes.launches
     print(f"[families] the phase: {time.monotonic() - t0:.1f} s wall", flush=True)
-    trained = [(name, families[f"{name}_train"]) for name in ("xlstm", "whisper")]
+    trained = [(name, families[f"{name}_train"]) for name in ("xlstm", "zamba2", "whisper")]
     need = len(FAMILY_SERVES) * FAMILY_ROUNDS + sum(
         4 * t["encode_groups"] + t["restore"]["decode_groups"] for _, t in trained)
     groups = " + ".join(f"4 {name} checkpoints x {t['encode_groups']} encode groups + "

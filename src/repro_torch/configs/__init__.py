@@ -1,10 +1,9 @@
 """Exact per-architecture configs of the ported families (one module each).
 
-Copies of the reference package's ``repro/configs`` modules for the dense,
-moe, vlm, encdec and ssm families, in the reference's order. Import
-side-effect free; each module exports ``CONFIG`` plus a ``smoke_config()``
-returning a reduced same-family config for CPU tests. The hybrid config
-(zamba2-2.7b) waits for the port of its family (ROADMAP item 13d).
+Copies of the reference package's ``repro/configs`` modules, every family's,
+in the reference's order. Import side-effect free; each module exports
+``CONFIG`` plus a ``smoke_config()`` returning a reduced same-family config
+for CPU tests.
 """
 
 from repro_torch.configs import (
@@ -17,10 +16,11 @@ from repro_torch.configs import (
     whisper_base,
     xlstm_350m,
     yi_6b,
+    zamba2_2_7b,
 )
 
 _MODULES = [whisper_base, xlstm_350m, gemma2_2b, mistral_nemo_12b, yi_6b, qwen1_5_0_5b,
-            pixtral_12b, grok_1_314b, mixtral_8x7b]
+            pixtral_12b, grok_1_314b, mixtral_8x7b, zamba2_2_7b]
 
 ALL_CONFIGS = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

@@ -25,7 +25,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import layers as ly
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import _remat, chunked_ce_loss
+from repro_torch.models.lm import _remat, chunked_ce_loss, init_generator
 
 
 def _init_enc_block(gen: torch.Generator, cfg: ModelConfig, device):
@@ -54,11 +54,7 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None
     """Random parameters from ``generator`` on its device; without one, from
     seed 0 on ``device`` (default: the card; ``"meta"`` gives shapes and
     dtypes without storage)."""
-    if generator is None:
-        dev = resolve_device(device)
-        generator = torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(0)
-    else:
-        dev = generator.device
+    generator, dev = init_generator(generator, device)
     dtype = ly.dt(cfg)
     return {
         "embedding": ly.init_embedding(generator, cfg, dev),

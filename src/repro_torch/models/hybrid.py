@@ -1,0 +1,191 @@
+"""Zamba2-style hybrid: a Mamba2 backbone with one SHARED attention+MLP
+block (a single weight copy) applied after every ``attn_every``-th backbone
+layer.
+
+Mirrors the reference package's ``repro/models/hybrid.py``. The parameters
+keep the reference's tree, ``{"embedding", "layers": {"ln", "mamba"},
+"shared": {"ln1", "attn", "ln2", "mlp"}, "ln_f"}``, the backbone's leaves
+stacked along a leading ``n_layers`` axis as :mod:`repro_torch.models.lm`
+keeps them. The layers run as a Python loop, each under the config's remat
+policy; the shared block runs at a layer where the reference's ``lax.cond``
+takes it, a static branch here. Its gradient is the sum over its sites.
+
+Each application site keeps its own KV cache (weights are shared,
+activations are not); the shared attention uses the sliding window
+``local_window`` and its cache holds min(max_seq, local_window) positions.
+The serving cache is ``{"mamba": (conv_buf, S, n), "k", "v", "slot_pos",
+"pos"}``, the Mamba2 states stacked along the layers. Prefill fills a
+preallocated cache layer by layer; the decode step writes each site's K/V
+in place (as :func:`repro_torch.models.layers.decode_attention` does) and
+returns new Mamba2 states, as the reference's. Serving runs under
+``torch.inference_mode()``. The reference's ``logical_axes`` and
+``cache_logical_axes`` wait for ROADMAP item 14.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import layers as ly
+from repro_torch.models import ssm
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import _init_layers, _remat, _unstack, chunked_ce_loss, init_generator
+
+
+def _attn_flags(cfg: ModelConfig) -> tuple[list[bool], list[int], int]:
+    """(apply the shared block after layer i, its site index (0 where it
+    does not apply), number of sites): layer i hits when (i + 1) %
+    attn_every == 0, the sites numbered in order."""
+    flags, slots = [], []
+    site = 0
+    for i in range(cfg.n_layers):
+        hit = cfg.attn_every > 0 and (i + 1) % cfg.attn_every == 0
+        flags.append(hit)
+        slots.append(site if hit else 0)
+        site += hit
+    return flags, slots, site
+
+
+def _init_backbone_layer(gen: torch.Generator, cfg: ModelConfig, device):
+    return {"ln": ly.init_rmsnorm(cfg.d_model, ly.dt(cfg), device),
+            "mamba": ssm.init_mamba2(gen, cfg, device)}
+
+
+def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None):
+    """Random parameters from ``generator`` on its device; without one, from
+    seed 0 on ``device`` (default: the card; ``"meta"`` gives shapes and
+    dtypes without storage). Drawn in the reference's order: the
+    embedding, the backbone layer after layer, the shared attention, the
+    shared MLP."""
+    generator, dev = init_generator(generator, device)
+    dtype = ly.dt(cfg)
+    return {
+        "embedding": ly.init_embedding(generator, cfg, dev),
+        "layers": _init_layers(generator, cfg, dev, init_block=_init_backbone_layer),
+        "shared": {
+            "ln1": ly.init_rmsnorm(cfg.d_model, dtype, dev),
+            "attn": ly.init_attention(generator, cfg, dev),
+            "ln2": ly.init_rmsnorm(cfg.d_model, dtype, dev),
+            "mlp": ly.init_mlp(generator, cfg, dev),
+        },
+        "ln_f": ly.init_rmsnorm(cfg.d_model, dtype, dev),
+    }
+
+
+def _shared_block(shared, cfg: ModelConfig, x):
+    h = ly.rmsnorm(shared["ln1"], x)
+    x = x + ly.attention(shared["attn"], cfg, h, window=cfg.local_window)[0]
+    h = ly.rmsnorm(shared["ln2"], x)
+    return x + ly.mlp(shared["mlp"], cfg, h)
+
+
+def _layer_apply(cfg: ModelConfig, hit: bool, p, shared, x):
+    """One backbone layer, then the shared block where ``hit``."""
+    out, _ = ssm.mamba2_block(p["mamba"], cfg, ly.rmsnorm(p["ln"], x))
+    x = x + out
+    return _shared_block(shared, cfg, x) if hit else x
+
+
+def backbone(params, cfg: ModelConfig, x):
+    flags, _, _ = _attn_flags(cfg)
+    for p, hit in zip(_unstack(params["layers"], cfg.n_layers), flags):
+        x = _remat(cfg, functools.partial(_layer_apply, cfg, hit))(p, params["shared"], x)
+    return ly.rmsnorm(params["ln_f"], x)
+
+
+def train_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    x = ly.embed(params["embedding"], cfg, batch["tokens"])
+    x = backbone(params, cfg, x)
+    return chunked_ce_loss(params, cfg, x, batch["labels"])
+
+
+# -- serving ------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
+    """Zero Mamba2 states for every layer and an empty KV ring of
+    min(max_seq, local_window) positions for every site."""
+    _, _, n_sites = _attn_flags(cfg)
+    Smax = min(max_seq, cfg.local_window)
+    Hkv, hd = cfg.n_kv_heads, cfg.hd
+    dev = resolve_device(device)
+    state = ssm.mamba2_state_init(cfg, B, device="meta")
+    return {
+        "mamba": tuple(torch.zeros((cfg.n_layers, *t.shape), dtype=t.dtype, device=dev)
+                       for t in state),
+        "k": torch.zeros((n_sites, B, Smax, Hkv, hd), dtype=ly.dt(cfg), device=dev),
+        "v": torch.zeros((n_sites, B, Smax, Hkv, hd), dtype=ly.dt(cfg), device=dev),
+        "slot_pos": torch.full((n_sites, Smax), ly.EMPTY_POS, dtype=torch.int32, device=dev),
+        "pos": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+@torch.inference_mode()
+def prefill(params, cfg: ModelConfig, batch, max_seq: int | None = None):
+    """Run the prompt through every layer from empty states: (last-token
+    logits, primed cache). A prompt shorter than ssm_conv − 1 leaves the
+    cache's conv buffer ``None``, as the reference's, and a decode step
+    from it raises."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    cache = init_cache(cfg, B, max_seq or S, device=tokens.device)
+    x = ly.embed(params["embedding"], cfg, tokens)
+    shared = params["shared"]
+    flags, slots, _ = _attn_flags(cfg)
+    conv_buf = cache["mamba"][0]
+    for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        out, st = ssm.mamba2_block(p["mamba"], cfg, ly.rmsnorm(p["ln"], x))
+        x = x + out
+        for dst, src in zip(cache["mamba"], st):
+            if src is not None:
+                dst[i].copy_(src)
+        if st[0] is None:
+            conv_buf = None
+        if flags[i]:
+            j = slots[i]
+            attn, k, v = ly.attention(shared["attn"], cfg, ly.rmsnorm(shared["ln1"], x),
+                                      window=cfg.local_window)
+            x = x + attn
+            ly.fill_cache_from_prefill(k, v, cache["k"][j], cache["v"][j],
+                                       cache["slot_pos"][j])
+            x = x + ly.mlp(shared["mlp"], cfg, ly.rmsnorm(shared["ln2"], x))
+    x = ly.rmsnorm(params["ln_f"], x)
+    last = ly.logits(params["embedding"], cfg, x[:, -1:])
+    cache["mamba"] = (conv_buf, *cache["mamba"][1:])
+    cache["pos"] = torch.full((), S, dtype=torch.int32, device=x.device)
+    return last, cache
+
+
+@torch.inference_mode()
+def decode_step(params, cfg: ModelConfig, token, cache):
+    """token: (B, 1) int32 → (logits (B, 1, V) float32, cache): new Mamba2
+    states, each site's k, v and slot_pos updated in place, ``pos``
+    advanced (on the device)."""
+    if cache["mamba"][0] is None:
+        raise ValueError(
+            f"{cfg.name}: the cache has no Mamba2 conv buffer (its prefill had fewer than "
+            f"ssm_conv - 1 = {cfg.ssm_conv - 1} tokens), so no decode step can follow it")
+    x = ly.embed(params["embedding"], cfg, token)
+    shared = params["shared"]
+    flags, slots, _ = _attn_flags(cfg)
+    pos = cache["pos"]
+    new = tuple(torch.empty_like(t) for t in cache["mamba"])
+    for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        out, st = ssm.mamba2_decode_step(p["mamba"], cfg, ly.rmsnorm(p["ln"], x),
+                                         tuple(t[i] for t in cache["mamba"]))
+        x = x + out
+        for dst, src in zip(new, st):
+            dst[i].copy_(src)
+        if flags[i]:
+            j = slots[i]
+            x = x + ly.decode_attention(
+                shared["attn"], cfg, ly.rmsnorm(shared["ln1"], x), cache["k"][j],
+                cache["v"][j], cache["slot_pos"][j], pos, window=cfg.local_window)
+            x = x + ly.mlp(shared["mlp"], cfg, ly.rmsnorm(shared["ln2"], x))
+    x = ly.rmsnorm(params["ln_f"], x)
+    lg = ly.logits(params["embedding"], cfg, x)
+    return lg, {"mamba": new, "k": cache["k"], "v": cache["v"],
+                "slot_pos": cache["slot_pos"], "pos": pos + 1}

@@ -50,9 +50,11 @@ FAMILIES = ("dense", "moe", "vlm")
 
 def _require_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
+        module = {"encdec": "encdec", "ssm": "xlstm", "hybrid": "hybrid"}.get(cfg.family)
+        where = f"repro_torch.models.{module}" if module else "no module of the port"
         raise NotImplementedError(
             f"{cfg.name}: this module runs the {', '.join(FAMILIES)} families, not "
-            f"{cfg.family!r} (the hybrid family waits for ROADMAP.md item 13d)")
+            f"{cfg.family!r}, which {where} runs")
 
 
 def _layer_windows(cfg: ModelConfig) -> list[int]:
@@ -94,10 +96,11 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, device):
     return p
 
 
-def _init_layers(gen: torch.Generator, cfg: ModelConfig, device):
-    """The blocks' parameters in the stacked layout: each (n_layers, ...)
-    leaf allocated once and filled a block at a time, drawn block after
-    block, so only one block is ever held twice."""
+def _init_layers(gen: torch.Generator, cfg: ModelConfig, device, init_block=init_block):
+    """The blocks' parameters (``init_block(gen, cfg, device)`` each) in the
+    stacked layout: each (n_layers, ...) leaf allocated once and filled a
+    block at a time, drawn block after block, so only one block is ever
+    held twice."""
     stacked = None
     for i in range(cfg.n_layers):
         block = init_block(gen, cfg, device)
@@ -108,17 +111,23 @@ def _init_layers(gen: torch.Generator, cfg: ModelConfig, device):
     return stacked
 
 
+def init_generator(generator: torch.Generator | None, device):
+    """(generator, device) of a family's ``init``: ``generator`` on its own
+    device, or a seed-0 one for ``device`` (default: the card; a CPU one
+    for ``"meta"``, which allocates nothing)."""
+    if generator is not None:
+        return generator, generator.device
+    dev = resolve_device(device)
+    return torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(0), dev
+
+
 def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None):
     """Random parameters from ``generator`` on its device; without one, from
     seed 0 on ``device`` (default: the card), where ``"meta"`` gives the
     parameters' shapes and dtypes without allocating them. The vlm family
     adds ``vision_proj``, drawn last."""
     _require_family(cfg)
-    if generator is None:
-        dev = resolve_device(device)
-        generator = torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(0)
-    else:
-        dev = generator.device
+    generator, dev = init_generator(generator, device)
     params = {
         "embedding": ly.init_embedding(generator, cfg, dev),
         "layers": _init_layers(generator, cfg, dev),

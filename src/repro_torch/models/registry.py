@@ -1,8 +1,8 @@
 """Architecture registry: one API over the port's model families.
 
-Mirrors the reference package's ``repro/models/registry.py`` for the dense,
-moe, vlm, encdec and ssm families (hybrid waits for ROADMAP item 13d).
-Every entry exposes
+Mirrors the reference package's ``repro/models/registry.py`` for all six
+families: dense, moe and vlm (:mod:`~repro_torch.models.lm`), encdec, ssm
+(:mod:`~repro_torch.models.xlstm`) and hybrid. Every entry exposes
 ``init(generator, device)``, ``train_loss(params, batch)``,
 ``prefill(params, batch, max_seq)``,
 ``decode_step(params, token, cache)``, ``init_cache(B, max_seq, device)``
@@ -20,11 +20,12 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import encdec, lm, xlstm
+from repro_torch.models import encdec, hybrid, lm, xlstm
 from repro_torch.models.config import ModelConfig, ShapeSpec
 from repro_torch.tree import tree_map
 
-_FAMILY_MODULES = {**{family: lm for family in lm.FAMILIES}, "encdec": encdec, "ssm": xlstm}
+_FAMILY_MODULES = {**{family: lm for family in lm.FAMILIES}, "encdec": encdec, "ssm": xlstm,
+                   "hybrid": hybrid}
 
 
 def zero_extras(cfg: ModelConfig, tokens: torch.Tensor) -> dict:
@@ -86,8 +87,7 @@ def _configs(smoke: bool):
 def get(name: str, smoke: bool = False) -> Arch:
     cfgs = _configs(smoke)
     if name not in cfgs:
-        raise KeyError(f"unknown arch {name!r}; the port has {sorted(cfgs)} (the hybrid "
-                       "family waits for ROADMAP.md item 13d)")
+        raise KeyError(f"unknown arch {name!r}; the port has {sorted(cfgs)}")
     cfg = cfgs[name]
     return Arch(cfg=cfg, module=_FAMILY_MODULES[cfg.family])
 

@@ -1,7 +1,7 @@
-"""Recurrent sequence blocks of the xLSTM: mLSTM and sLSTM.
+"""Recurrent sequence blocks: the xLSTM's mLSTM and sLSTM, and Mamba2.
 
-Mirrors ``repro/models/ssm.py:36-298`` of the reference package. The
-parallel-form mLSTM rests on one primitive, a chunked linear recurrence
+Mirrors ``repro/models/ssm.py`` of the reference package. The
+parallel-form mLSTM and Mamba2's SSD rest on one primitive, a chunked linear recurrence
 (scalar per-(head, t) decay, rank-1 state updates):
 
     S_t = a_t · S_{t-1} + i_t · k_t v_tᵀ          (state: (dk, dv))
@@ -13,11 +13,16 @@ attention matrix, across chunks by a Python loop carrying (S, n) (the
 reference's ``lax.scan``). Decays stay in log space and are ≤ 0, so every
 exp() of a kept entry is ≤ 1. Every product is float32, as the reference's.
 The sLSTM is a per-position recurrence with the xLSTM's max-stabilizer,
-run as a Python loop over positions. Decode forms are the exact O(1)
+run as a Python loop over positions. Mamba2 is a causal depthwise conv
+over its (x, B, C) streams and the recurrence without the normalizer, the
+state's per-head decay set by dt. Decode forms are the exact O(1)
 recurrences and return new states (the reference's copies).
 
-The Mamba2 (SSD) functions of the same reference module
-(``ssm.py:301-420``) wait for ROADMAP item 13d.
+Mamba2 keeps the reference's roundings: the prefill conv is a bfloat16
+product and three bfloat16 adds in tap order (the reference's Python
+``sum``), the decode conv float32 products summed and rounded once (its
+``einsum``, which XLA accumulates in float32); silu is ``x · sigmoid(x)``
+and softplus ``logaddexp(x, 0)``, the forms of ``jax.nn``.
 """
 
 from __future__ import annotations
@@ -77,8 +82,12 @@ def chunk_linear_recurrence(
         la, gi = log_a[:, sl], gate_i[:, sl]
         cum = torch.cumsum(la, dim=1)  # (B, c, H) inclusive log-decay products
         # Decay from s to t (applying a_{s+1..t}) is exp(cum_t − cum_s), s ≤ t.
+        # The entries above the diagonal are masked to −inf before the exp:
+        # the reference's where(tri, exp(d), 0) gives the same values, but
+        # its exp overflows there once a chunk's decay passes e^88 (Mamba2's
+        # dt·A over 256 positions), and the backward's 0 · inf is NaN.
         d_ts = cum[:, :, None, :] - cum[:, None, :, :]  # (B, t, s, H)
-        D = torch.where(tri, torch.exp(d_ts), 0.0) * gi[:, None, :, :]
+        D = torch.exp(d_ts.masked_fill(~tri, -math.inf)) * gi[:, None, :, :]
         scores = torch.einsum("bthd,bshd->btsh", qc, kc)
         w = scores * D  # (B, t, s, H)
         y_intra = torch.einsum("btsh,bshv->bthv", w, vc)
@@ -265,3 +274,138 @@ def slstm_state_init(cfg: ModelConfig, B: int, device=None):
         return torch.zeros((B, cfg.d_model), dtype=dtype, device=device)
 
     return (zeros(dt(cfg)), zeros(), zeros(), zeros() - 30.0)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD) block
+# ---------------------------------------------------------------------------
+
+
+def _silu_f32(x):
+    """``jax.nn.silu`` of ``x`` in float32, in its form ``x · sigmoid(x)``
+    (``F.silu`` rounds otherwise in a quarter of float32 inputs)."""
+    x = x.to(torch.float32)
+    return x * torch.sigmoid(x)
+
+
+def _softplus(x):
+    """``jax.nn.softplus``, which is ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+def init_mamba2(gen: torch.Generator, cfg: ModelConfig, device=None):
+    """w_in, conv (normal × 0.1 in the model's dtype), then w_out from
+    ``gen``; A_log and dt_bias float32 zeros (A = −exp(A_log) = −1), D
+    float32 ones."""
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    N, H = cfg.ssm_state, cfg.n_heads
+    dtype, dev = dt(cfg), device or gen.device
+    # joint projection: [x (di), z (di), B (H·N), C (H·N), dt (H)]
+    w_in = init_dense(gen, d, 2 * di + 2 * H * N + H, dtype, dev)
+    conv = torch.randn((cfg.ssm_conv, di + 2 * H * N), generator=gen, dtype=torch.float32,
+                       device=dev)
+    return {
+        "w_in": w_in,
+        "conv": (conv * 0.1).to(dtype),
+        "A_log": torch.zeros((H,), dtype=torch.float32, device=dev),
+        "D": torch.ones((H,), dtype=torch.float32, device=dev),
+        "dt_bias": torch.zeros((H,), dtype=torch.float32, device=dev),
+        "w_out": init_dense(gen, di, d, dtype, dev),
+    }
+
+
+def _mamba2_split(cfg: ModelConfig, proj):
+    """(x, z, B, C, dt) of the joint input projection, along its last axis."""
+    di = cfg.ssm_expand * cfg.d_model
+    HN = cfg.ssm_state * cfg.n_heads
+    return torch.split(proj, [di, di, HN, HN, cfg.n_heads], dim=-1)
+
+
+def causal_conv(xbc_pad, conv_w, S: int):
+    """The prefill's causal depthwise conv, as the reference sums it:
+    ``sum(xbc_pad[:, i:i+S] * conv_w[i] for i in taps)``, each product and
+    each add rounded in the inputs' dtype, taps in order."""
+    return sum(xbc_pad[:, i:i + S] * conv_w[i] for i in range(conv_w.shape[0]))
+
+
+def decode_conv(window, conv_w):
+    """The decode step's conv over a (B, K, dconv) window, as the reference's
+    ``einsum("bkc,kc->bc")`` computes it: float32 products summed over the
+    taps, rounded once to the inputs' dtype."""
+    return (window.to(torch.float32) * conv_w.to(torch.float32)).sum(dim=1).to(window.dtype)
+
+
+def _mamba2_heads(params, cfg: ModelConfig, xbc_conv, dt_, lead: tuple[int, ...], dtype):
+    """silu of the conv output → (x as v: (*lead, H, P), B, C: (*lead, H, N),
+    log decay and dt: (*lead, H), float32)."""
+    di = cfg.ssm_expand * cfg.d_model
+    N, H = cfg.ssm_state, cfg.n_heads
+    xbc_conv = _silu_f32(xbc_conv).to(dtype)
+    x_c, B_c, C_c = torch.split(xbc_conv, [di, H * N, H * N], dim=-1)
+    dt_v = _softplus(dt_.to(torch.float32) + params["dt_bias"])
+    log_a = dt_v * -torch.exp(params["A_log"])  # ≤ 0
+    return (x_c.reshape(*lead, H, di // H), B_c.reshape(*lead, H, N),
+            C_c.reshape(*lead, H, N), log_a, dt_v)
+
+
+def _mamba2_out(params, y, v, z, dtype):
+    """(y + v·D) · silu(z), float32, cast once to ``dtype``, flattened over
+    the heads."""
+    y = y + v.to(torch.float32) * params["D"][:, None]
+    return (y.flatten(-2) * _silu_f32(z)).to(dtype)
+
+
+def mamba2_block(params, cfg: ModelConfig, x, state=None):
+    """x: (B, S, d); state: (conv_buf (B, conv − 1, dconv), S_state, n).
+    Returns (y, new state); the new conv buffer is the last conv − 1
+    positions of the raw (x, B, C) streams, ``None`` when S < conv − 1, as
+    the reference's."""
+    B, S, _ = x.shape
+    K = cfg.ssm_conv
+    x_in, z, Bv, Cv, dt_ = _mamba2_split(cfg, x @ params["w_in"])
+    xbc = torch.cat([x_in, Bv, Cv], dim=-1)  # (B, S, dconv)
+    if state is not None:
+        xbc_pad = torch.cat([state[0], xbc], dim=1)
+    else:
+        xbc_pad = F.pad(xbc, (0, 0, K - 1, 0))
+    v, B_c, C_c, log_a, dt_v = _mamba2_heads(
+        params, cfg, causal_conv(xbc_pad, params["conv"], S), dt_, (B, S), x.dtype)
+    y, (S_new, n_new) = chunk_linear_recurrence(
+        C_c, B_c, v, log_a, dt_v, chunk=cfg.ssm_chunk,
+        init_state=None if state is None else (state[1], state[2]), normalize=False,
+        unroll=cfg.scan_unroll)
+    y = _mamba2_out(params, y, v, z, x.dtype)
+    new_conv_buf = xbc[:, S - (K - 1):] if S >= K - 1 else None
+    return y @ params["w_out"], (new_conv_buf, S_new, n_new)
+
+
+def mamba2_decode_step(params, cfg: ModelConfig, x, state):
+    """x: (B, 1, d); state: (conv_buf, S_state, n). Returns ((B, 1, d), new
+    state). Raises ``ValueError`` for a ``None`` conv buffer (a prefill of
+    fewer than conv − 1 positions), where the reference fails in its
+    concatenate."""
+    B = x.shape[0]
+    conv_buf, S_state, n_state = state
+    if conv_buf is None:
+        raise ValueError(
+            f"Mamba2 decode needs a conv buffer of {cfg.ssm_conv - 1} positions; a prefill "
+            f"of fewer than ssm_conv - 1 = {cfg.ssm_conv - 1} tokens leaves none")
+    x_in, z, Bv, Cv, dt_ = _mamba2_split(cfg, (x @ params["w_in"])[:, 0])
+    xbc = torch.cat([x_in, Bv, Cv], dim=-1)[:, None]  # (B, 1, dconv)
+    window = torch.cat([conv_buf, xbc], dim=1)  # (B, K, dconv)
+    v, B_c, C_c, log_a, dt_v = _mamba2_heads(params, cfg, decode_conv(window, params["conv"]),
+                                             dt_, (B,), x.dtype)
+    y, S_state, n_state = linear_recurrence_step(C_c, B_c, v, log_a, dt_v, S_state, n_state,
+                                                 normalize=False)
+    y = _mamba2_out(params, y, v, z, x.dtype)
+    return (y @ params["w_out"])[:, None], (window[:, 1:], S_state, n_state)
+
+
+def mamba2_state_init(cfg: ModelConfig, B: int, device=None):
+    """(conv buffer in the model's dtype, S state, n state float32), zeros."""
+    di = cfg.ssm_expand * cfg.d_model
+    N, H = cfg.ssm_state, cfg.n_heads
+    return (torch.zeros((B, cfg.ssm_conv - 1, di + 2 * H * N), dtype=dt(cfg), device=device),
+            torch.zeros((B, H, N, di // H), dtype=torch.float32, device=device),
+            torch.zeros((B, H, N), dtype=torch.float32, device=device))

@@ -10,8 +10,11 @@ optimizer's global norm sums its leaves in that order, and a checkpoint
 names, groups and writes its leaves in it. So :func:`tree_flatten` walks
 them as JAX does, a list or tuple item's path entry being its index (an
 ``int``; ``"/".join(map(str, path))`` gives the reference checkpoint's leaf
-name, ``params/decoder/0/cross_attn/wq``); anything that is neither a dict,
-a list nor a tuple is a leaf.
+name, ``params/decoder/0/cross_attn/wq``). ``None`` is an empty subtree, as
+in ``jax.tree_util`` (a Mamba2 conv buffer after a prompt shorter than the
+conv's reach): it holds no leaf, ``tree_map`` keeps it and
+``tree_unflatten`` rebuilds it. Anything else that is neither a dict, a list
+nor a tuple is a leaf.
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ _SEQUENCES = (list, tuple)
 
 def tree_map(fn, tree, *rest):
     """``fn`` applied leaf by leaf over ``tree`` and trees of its structure;
-    lists stay lists and tuples tuples."""
+    lists stay lists and tuples tuples, ``None`` stays ``None``."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, _SEQUENCES):
@@ -39,7 +44,9 @@ def _children(node) -> list:
 
 def tree_flatten(tree) -> list[tuple[tuple[str | int, ...], object]]:
     """[(path, leaf)] in JAX's order: dict keys sorted, list and tuple items
-    in order, depth first."""
+    in order, depth first; nothing for a ``None``."""
+    if tree is None:
+        return []
     if not isinstance(tree, (dict, *_SEQUENCES)):
         return [((), tree)]
     return [((k, *path), leaf) for k, child in _children(tree)
@@ -56,6 +63,8 @@ def tree_unflatten(like, leaves):
     it = iter(leaves)
 
     def build(node):
+        if node is None:
+            return None
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
         if isinstance(node, _SEQUENCES):

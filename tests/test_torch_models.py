@@ -28,8 +28,9 @@ from repro_torch.models.registry import Arch
 CPU = torch.device("cpu")
 DENSE = ["gemma2-2b", "mistral-nemo-12b", "yi-6b", "qwen1.5-0.5b"]
 #: The other families' configs the port runs (tests/test_torch_families.py,
-#: tests/test_torch_xlstm.py).
-PORTED = ["mixtral-8x7b", "grok-1-314b", "pixtral-12b", "whisper-base", "xlstm-350m"]
+#: tests/test_torch_xlstm.py, tests/test_torch_hybrid.py).
+PORTED = ["mixtral-8x7b", "grok-1-314b", "pixtral-12b", "whisper-base", "xlstm-350m",
+          "zamba2-2.7b"]
 TOL = {"float32": 1e-4, "bfloat16": 0.08}
 
 
@@ -184,10 +185,8 @@ def test_decode_attention_through_a_wrapped_ring(window, dtype):
 def test_registry_lists_the_dense_family_with_the_reference_layout():
     """Every ported family's configs, in the reference's order, and each
     one's init shapes and dtypes against the reference's ``eval_shape``."""
-    assert arch_names() == [n for n in ref_arch_names() if n in DENSE + PORTED]
-    assert [n for n in ref_arch_names() if n not in DENSE + PORTED] == ["zamba2-2.7b"]
-    with pytest.raises(KeyError, match="item 13d"):
-        get("zamba2-2.7b")
+    assert arch_names() == ref_arch_names()
+    assert sorted(arch_names()) == sorted(DENSE + PORTED)
     for name in DENSE + PORTED:
         arch = get(name, smoke=True)
         assert arch.cfg == _port_cfg(ref_get(name, smoke=True).cfg)
@@ -203,6 +202,10 @@ def test_registry_lists_the_dense_family_with_the_reference_layout():
         assert not params["ln_f"]["scale"].any()
         if arch.cfg.family == "ssm":
             assert not any(blk["ln"]["scale"].any() for blk in params["blocks"])
+            continue
+        if arch.cfg.family == "hybrid":
+            assert not params["layers"]["ln"]["scale"].any()
+            assert not any(params["shared"][n]["scale"].any() for n in ("ln1", "ln2"))
             continue
         blocks = params["decoder"][0] if arch.cfg.family == "encdec" else params["layers"]
         assert not blocks["ln1"]["scale"].any()
@@ -221,15 +224,19 @@ def test_init_is_seeded_and_scaled():
 
 
 def test_other_families_raise_naming_item_13():
-    """The hybrid family is not ported (item 13d): its config is not
-    registered, and ``lm`` refuses it."""
-    with pytest.raises(KeyError, match="item 13d"):
-        get("zamba2-2.7b")
+    """Every family is ported: the registry maps the hybrid family to
+    ``models.hybrid``, and ``lm`` refuses it, naming that module; an
+    unknown arch raises ``KeyError`` naming the known ones."""
+    from repro_torch.models import hybrid as hybrid_mod
+
+    assert get("zamba2-2.7b").module is hybrid_mod
+    with pytest.raises(KeyError, match="the port has .*'zamba2-2.7b'"):
+        get("zamba2-7b")
     arch = get("qwen1.5-0.5b", smoke=True)
     hybrid = Arch(cfg=dataclasses.replace(arch.cfg, family="hybrid"), module=arch.module)
-    with pytest.raises(NotImplementedError, match="item 13d"):
+    with pytest.raises(NotImplementedError, match="repro_torch.models.hybrid runs"):
         hybrid.init(torch.Generator())
-    with pytest.raises(NotImplementedError, match="item 13d"):
+    with pytest.raises(NotImplementedError, match="repro_torch.models.hybrid runs"):
         hybrid.prefill({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
 
 

@@ -113,6 +113,36 @@ def test_unroll_flag_is_equivalent():
 
 
 @pytest.mark.parametrize("normalize", [False, True])
+def test_chunked_recurrence_gradient_is_finite_under_strong_decay(normalize):
+    """Decays near e^-1 a position over chunks of 128, as Mamba2's dt·A
+    gives them at full width: above the diagonal, cum_t − cum_s reaches
+    ~130, whose exp overflows float32. The values equal the reference's
+    (1e-5) and the step oracle's (2e-4); every gradient is finite and equals
+    the step oracle's to 1e-4 of its norm. The reference's own gradient is
+    NaN there: its where(tri, exp(d), 0) sends 0 · inf back through the
+    exp."""
+    args = list(_recurrence_inputs(11, B=1, S=160, H=2, dk=4, dv=3))
+    args[3] = -(1.0 + 0.1 * np.abs(args[3]))
+    want_y, _ = ref_ssm.chunk_linear_recurrence(*map(jnp.asarray, args), chunk=128,
+                                                normalize=normalize)
+    ref_grad = jax.grad(lambda la: jnp.sum(ref_ssm.chunk_linear_recurrence(
+        *map(jnp.asarray, args[:3]), la, jnp.asarray(args[4]), chunk=128,
+        normalize=normalize)[0]))(jnp.asarray(args[3]))
+    assert bool(jnp.isnan(ref_grad).any())
+    t_args = [torch.from_numpy(a).requires_grad_() for a in args]
+    y, (Sf, nf) = ssm.chunk_linear_recurrence(*t_args, chunk=128, normalize=normalize)
+    _close(y.detach(), want_y, (1e-5, 1e-5), "y against the reference")
+    grads = torch.autograd.grad((y.sum() + Sf.sum() + nf.sum()), t_args)
+    o_args = [torch.from_numpy(a).requires_grad_() for a in args]
+    oy, oS, on = _step_oracle(*o_args, normalize)
+    _close(y.detach(), oy.detach(), (2e-4, 2e-4), "y against the step oracle")
+    o_grads = torch.autograd.grad((oy.sum() + oS.sum() + on.sum()), o_args)
+    for g, w, what in zip(grads, o_grads, ("q", "k", "v", "log_a", "gate_i")):
+        assert bool(torch.isfinite(g).all()), what
+        assert torch.linalg.norm(g - w) <= 1e-4 * torch.linalg.norm(w), what
+
+
+@pytest.mark.parametrize("normalize", [False, True])
 def test_recurrence_step_matches_reference(normalize):
     q, k, v, log_a, gate_i = (a[:, 0] for a in _recurrence_inputs(5))
     rng = np.random.default_rng(6)

@@ -389,10 +389,14 @@ def test_trainer_defaults_to_the_card():
 
 
 def test_other_families_refuse_to_train():
-    """The hybrid family waits for item 13d (the moe, vlm and encdec
-    families train in tests/test_torch_families.py, the ssm family in
-    tests/test_torch_xlstm.py)."""
+    """``lm`` trains only its own families and names the module of each
+    other one (the moe, vlm and encdec families train in
+    tests/test_torch_families.py, the ssm family in
+    tests/test_torch_xlstm.py, the hybrid family in
+    tests/test_torch_hybrid.py)."""
     arch = get("qwen1.5-0.5b", smoke=True)
-    other = Arch(cfg=dataclasses.replace(arch.cfg, family="hybrid"), module=arch.module)
-    with pytest.raises(NotImplementedError, match="item 13d"):
-        other.train_loss({}, _t(_batch(arch.cfg)))
+    for family, module in (("hybrid", "hybrid"), ("ssm", "xlstm"), ("encdec", "encdec")):
+        other = Arch(cfg=dataclasses.replace(arch.cfg, family=family), module=arch.module)
+        with pytest.raises(NotImplementedError, match=f"repro_torch.models.{module} runs"):
+            other.train_loss({}, _t(_batch(arch.cfg)))
+    assert get("zamba2-2.7b").module.__name__ == "repro_torch.models.hybrid"
