@@ -120,6 +120,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (8, 4), a restart from 6 of 8 strips per leaf, the final loss equal to
    the straight run's to rel = 1e-4). K1's launches on the path must cover
    every round and every xlstm, zamba2 and whisper encode and decode group.
+14. shard — grid sharding on the card: the fleet, taskq and sched grids of
+   phases 7, 8 and 10 again on a mesh that repeats the card
+   (``["cuda:0", "cuda:0"]``: each launch's rows cut in two halves run one
+   after the other), every output array bit-equal to the phase's own
+   unsharded result and ``stats.by_mesh == {(2,): 1}``; a streamed +
+   sharded fleet run's frontier equal to the unsharded one; a ``chunk=6``
+   run on a 4-entry mesh padded to 8 rows with the real rows untouched;
+   each run's wall beside the unsharded one (no speedup expected).
+15. launch — the launch plan: qwen1.5-0.5b's four cells on the 16 x 16 H100
+   mesh through ``repro_torch.launch.dryrun.run_cell`` (spec count,
+   per-device argument bytes, the three roofline terms, the dominant one),
+   and the one-card roofline of the runs phases 6, 12 and 13 measured
+   (qwen's prefill at 32 x 1,024 and decode step, its train step at 4,096 x
+   2, zamba2's prefill at 32 x 1,024), each counted on ``meta`` at its real
+   shape beside its measured device busy time, which must not beat the
+   counted FLOPs at the bfloat16 peak.
 
 The last lines are the card's ``nvidia-smi`` line, one JSON object with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``. Without a card it
@@ -1648,6 +1664,181 @@ def run_obs_profile(device, fleet: dict, *, strip_bytes: int = FILE_BYTES // K_M
     return snap
 
 
+#: The ``[shard]`` phase's mesh: the card twice, so every launch's grid rows
+#: are cut in two halves that run one after the other (no speedup claimed).
+SHARD_DEVICES = 2
+
+
+def run_shard(device, fleet: dict, taskq: dict, sched: dict) -> dict:
+    """Grid sharding on the card: the fleet, taskq and sched grids of the
+    ``[fleet]``, ``[taskq]`` and ``[sched]`` phases again on a mesh that
+    repeats the card, each output array bit-equal to the phase's own
+    unsharded result and ``stats.by_mesh == {(2,): 1}``; a streamed +
+    sharded fleet run's frontier equal to the unsharded one; a ``chunk=6``
+    fleet run on a 4-entry mesh padded to 8 rows, its real rows equal to
+    the unsharded run's. Each run's wall time is printed beside the
+    unsharded one's."""
+    from repro_torch.fleet import FleetSweep, convergence_stats, frontier_points
+    from repro_torch.sched import SchedSweep
+    from repro_torch.taskq import TaskqSweep
+
+    mesh = [device] * SHARD_DEVICES
+    runs = (("fleet", fleet, FleetSweep(chunk=FLEET_CHUNK, mesh=mesh), ()),
+            ("taskq", taskq, TaskqSweep(chunk=TASKQ_CHUNK, mesh=mesh), (taskq.get("pools"),)),
+            ("sched", sched, SchedSweep(chunk=SCHED_CHUNK, mesh=mesh), ()))
+    rec = {}
+    for name, base, sweep, extra in runs:
+        t0 = time.monotonic()
+        res = sweep.run(base["grid"], base["count"], *extra)
+        _sync(device)
+        wall_s = time.monotonic() - t0
+        want = base["res"].out
+        equal = set(res.out) == set(want) and all(torch_equal(res.out[k], want[k]) for k in want)
+        rec[name] = {"wall_s": wall_s, "unsharded_wall_s": base["wall_s"], "equal": equal,
+                     "launches": res.launches, "by_mesh": dict(sweep.stats.by_mesh)}
+        print(f"[shard] {name}: {len(base['grid'])} cases x {base['count']} arrivals on the "
+              f"mesh {[str(d) for d in sweep.mesh.devices]}: {res.launches} launches of "
+              f"{SHARD_DEVICES} slices, {wall_s:.3f} s wall against the unsharded "
+              f"{base['wall_s']:.3f} s (one card runs the slices one after the other); every "
+              f"output array bit-equal to the unsharded run's: {equal}; by_mesh "
+              f"{sweep.stats.by_mesh}", flush=True)
+        if not equal or sweep.stats.by_mesh != {(SHARD_DEVICES,): 1}:
+            raise AssertionError(f"[shard] {name}: equal {equal}, by_mesh "
+                                 f"{sweep.stats.by_mesh}")
+        if name == "fleet":
+            t0 = time.monotonic()
+            st = sweep.run(base["grid"], base["count"], stream=True)
+            _sync(device)
+            same = ([p.to_dict() for p in frontier_points(st)]
+                    == [p.to_dict() for p in frontier_points(base["res"])]
+                    and convergence_stats(st) == convergence_stats(base["res"]))
+            rec["fleet"]["stream_wall_s"] = time.monotonic() - t0
+            print(f"[shard] fleet streamed + sharded: {rec['fleet']['stream_wall_s']:.3f} s wall "
+                  f"(unsharded streamed {base['stream_wall_s']:.3f} s); frontier points and "
+                  f"convergence equal to the unsharded run's: {same}", flush=True)
+            if not same:
+                raise AssertionError("[shard] the streamed + sharded fleet run differs")
+
+    cases = fleet["grid"][:5]
+    sweep = FleetSweep(chunk=6, mesh=[device] * 4)
+    cls_ = cases[0].cls
+    key = sweep.bucket_key(len(cases), fleet["count"], cls_.n_max, cls_.k_max + 1,
+                           cls_.n_max + 1)
+    res = sweep.run(cases, fleet["count"])
+    want = fleet["res"].out
+    same = all(torch_equal(res.out[k], want[k][:5]) for k in want)
+    print(f"[shard] chunk=6 on a 4-entry mesh: chunk {key[0]}, {res.launches} launch; the 5 "
+          f"real rows equal to the unsharded run's: {same}", flush=True)
+    if key[0] != 8 or res.launches != 1 or not same:
+        raise AssertionError(f"[shard] chunk=6 on 4 devices: chunk {key[0]}, {res.launches} "
+                             f"launches, real rows equal {same}")
+    rec["chunk6"] = {"chunk": key[0], "equal": same}
+    return rec
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a, b))
+
+
+#: ``[launch]``: the four production cells of ``SERVE_MODEL`` planned on the
+#: 16 x 16 H100 mesh.
+LAUNCH_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+
+
+def run_launch(serve: dict, train: dict, families: dict) -> dict:
+    """The launch plan: (a) ``SERVE_MODEL``'s four cells planned on the
+    16 x 16 H100 mesh with ``run_cell`` (spec count, per-device argument
+    bytes, the three roofline terms, the dominant one); (b) the one-card
+    roofline of the runs this smoke measured — the ``[serve]`` prefill at 32
+    x 1,024 and its decode step, the ``[train]`` step at 4,096 x 2 and the
+    zamba2 prefill of ``[families]`` at 32 x 1,024 — each counted on
+    ``meta`` at its real shape and chunks, beside its measured device busy
+    time. Every count must be positive and every term finite, and no busy
+    time may beat the counted FLOPs at the bfloat16 peak. The memory term's
+    fraction is printed, not held: the L2 can serve small re-reads."""
+    import math
+
+    import torch
+
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.specs import dryrun_target
+    from repro_torch.models import ShapeSpec, get
+    from repro_torch.obs.profile import HBM_BW, PEAK_FLOPS, count_work
+
+    rec = {"cells": {}, "one_card": {}}
+    for shape in LAUNCH_SHAPES:
+        t0 = time.monotonic()
+        r = run_cell(SERVE_MODEL, shape, save=False)
+        rec["cells"][shape] = r
+        if r["status"] == "skipped":
+            print(f"[launch] {SERVE_MODEL} x {shape} on 16x16 H100s: skipped ({r['reason']})",
+                  flush=True)
+            continue
+        ro = r["roofline"]
+        terms = (ro["t_compute_s"], ro["t_memory_s"], ro["t_collective_s"])
+        print(f"[launch] {SERVE_MODEL} x {shape} on 16x16 H100s: {r['n_specs']} specs, "
+              f"{r['memory']['argument_size_b'] / 1e9:.4f} GB of arguments a device (fits "
+              f"80 GiB: {r['fits']}), {ro['flops']:.4e} FLOPs, {ro['hbm_bytes']:.4e} bytes, "
+              f"t_compute {terms[0] * 1e3:.4f} ms, t_memory {terms[1] * 1e3:.4f} ms, "
+              f"t_collective {terms[2] * 1e3:.4f} ms (modelled), dominant {ro['dominant']} "
+              f"({time.monotonic() - t0:.1f} s to plan and count)", flush=True)
+        if r["status"] != "ok" or not (ro["flops"] > 0 and ro["hbm_bytes"] > 0) \
+                or not all(math.isfinite(t) for t in terms):
+            raise AssertionError(f"[launch] {SERVE_MODEL} x {shape}: {r}")
+
+    def prefill(model: str, rows: int, prompt: int, max_seq: int):
+        arch = get(model)
+        params = arch.init(device="meta")
+        toks = torch.empty((rows, prompt), dtype=torch.int32, device="meta")
+        return lambda: arch.prefill_tokens(params, toks, max_seq=max_seq)
+
+    def decode(model: str, max_seq: int):
+        arch = get(model)
+        params = arch.init(device="meta")
+        cache = arch.init_cache(SERVE_BATCH, max_seq, device="meta")
+        token = torch.empty((SERVE_BATCH, 1), dtype=torch.int32, device="meta")
+        return lambda: arch.decode_step(params, token, cache)
+
+    def train_step():
+        fn, args, _ = dryrun_target(SERVE_MODEL, ShapeSpec("train", "train", TRAIN_SEQ,
+                                                           TRAIN_BATCH), None)
+        return lambda: fn(*args)
+
+    _, _, z_rows, z_prompt, z_max_seq = next(f for f in FAMILY_SERVES if f[0] == "zamba2-2.7b")
+    cases = (
+        (f"{SERVE_MODEL} prefill {SERVE_BATCH}x{SERVE_PROMPT}",
+         prefill(SERVE_MODEL, SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT + SERVE_STEPS),
+         serve["profile"]["prefill"]["device_busy_ms"]),
+        (f"{SERVE_MODEL} decode step, {SERVE_BATCH} rows",
+         decode(SERVE_MODEL, SERVE_PROMPT + SERVE_STEPS),
+         serve["profile"]["decode_step"]["device_busy_ms"]),
+        (f"{SERVE_MODEL} train step {TRAIN_SEQ}x{TRAIN_BATCH}", train_step(),
+         train["profile"]["busy_ms"]),
+        (f"zamba2-2.7b prefill {z_rows}x{z_prompt}",
+         prefill("zamba2-2.7b", z_rows, z_prompt, z_max_seq),
+         families["serve"]["zamba2-2.7b"]["profile"]["prefill"]["device_busy_ms"]),
+    )
+    for label, fn, busy_ms in cases:
+        flops, nbytes = count_work(fn)
+        t_c, t_m = flops / PEAK_FLOPS * 1e3, nbytes / HBM_BW * 1e3
+        frac = busy_ms / max(t_c, t_m)
+        rec["one_card"][label] = {"flops": flops, "bytes": nbytes, "t_compute_ms": t_c,
+                                  "t_memory_ms": t_m, "busy_ms": busy_ms,
+                                  "busy_over_bound": frac}
+        print(f"[launch] one card, {label}: {flops:.4e} FLOPs, {nbytes:.4e} bytes counted on "
+              f"meta; t_compute {t_c:.4f} ms, t_memory {t_m:.4f} ms, measured busy "
+              f"{busy_ms:.4f} ms = {frac:.3f}x max(t_compute, t_memory); busy / t_memory "
+              f"{busy_ms / t_m:.3f} (printed, not held)", flush=True)
+        if not (flops > 0 and nbytes > 0 and math.isfinite(t_c) and math.isfinite(t_m)):
+            raise AssertionError(f"[launch] {label}: a count is not positive and finite")
+        if busy_ms < t_c:
+            raise AssertionError(f"[launch] {label}: {busy_ms} ms busy beats the counted "
+                                 f"FLOPs at the bfloat16 peak ({t_c} ms): the count is wrong")
+    return rec
+
+
 #: The ``[train]`` phase: ``SERVE_MODEL`` at full width trained at the repo's
 #: ``train_4k`` sequence length, batch cut from the pod cell's 256 to 2 for
 #: one card; 6 straight steps, 3 + restart + 3 with strips lost.
@@ -2316,6 +2507,12 @@ def main() -> int:
     sched = run_sched(device)
     swept = run_obs_sweeps(device, fleet, taskq, sched)
     run_obs_profile(device, fleet)
+    t0 = time.monotonic()
+    run_shard(device, fleet, taskq, sched)
+    print(f"[shard] the phase: {time.monotonic() - t0:.1f} s wall", flush=True)
+    t0 = time.monotonic()
+    run_launch(serve, train, families)
+    print(f"[launch] the phase: {time.monotonic() - t0:.1f} s wall", flush=True)
     parts = []
     for ph in ("wall_ms", "launch_ms"):  # collection runs in the launch phase
         off, on = (float(np.mean([r[ph] for r in rounds[1:]]))

@@ -14,7 +14,8 @@ package evaluates such a grid in a handful of chunked device launches:
   frontiers, delay percentiles, capacity estimates, adaptation-convergence
   stats, and the ``BENCH_fleet.json`` artifact writer.
 * :mod:`repro_torch.fleet.shard` — streaming per-chunk frontier reductions
-  (``run(..., stream=...)``); sharding over several cards is not ported yet.
+  (``run(..., stream=...)``) and grid sharding across a device list
+  (``mesh=``, :func:`shard_grid`).
 """
 
 from repro_torch.fleet.frontier import (
@@ -30,6 +31,7 @@ from repro_torch.fleet.shard import (
     StreamedStats,
     StreamSpec,
     resolve_grid_mesh,
+    shard_grid,
 )
 from repro_torch.fleet.sweep import (
     BIG,
@@ -81,4 +83,5 @@ __all__ = [
     "StreamSpec",
     "StreamedStats",
     "resolve_grid_mesh",
+    "shard_grid",
 ]

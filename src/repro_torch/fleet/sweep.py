@@ -49,7 +49,7 @@ from repro_torch.core.fluid_scan import (
     tofec_scan_core,
 )
 from repro_torch.core.static_optimizer import ClassPlan, build_class_plan
-from repro_torch.fleet.shard import StreamedStats, resolve_grid_mesh, resolve_stream
+from repro_torch.fleet.shard import StreamedStats, resolve_grid_mesh, resolve_stream, shard_grid
 from repro_torch.fleet.stats import class_params, convergence_reduce, frontier_block_reduce
 from repro_torch.fleet.workloads import PoissonWorkload, TenantMix, Workload
 from repro_torch.obs.timeline import timeline_window
@@ -233,26 +233,43 @@ def tenant_cases(
 
 
 class ChunkedSweep:
-    """Chunked, shape-bucketed case sweeps on one device (the reference's
+    """Chunked, shape-bucketed case sweeps (the reference's
     ``ChunkedVmapSweep``).
 
     Owns the bucket cache (first use of a bucket counts in
     ``stats.traces``), the per-(class, L) plan cache, and the chunked launch
     loop (tail chunk padded by repetition, outputs sliced back and
     restacked). Subclasses define the bucket key, the per-case config
-    stacking and the launch body.
+    stacking, the launch body and its argument axes (``IN_AXES``: 0 for a
+    per-case operand, None for a grid-shared one).
 
-    ``chunk`` bounds the grid points per launch (memory bound). ``mesh``
-    must be None or 1 (one card; see
-    :func:`repro_torch.fleet.shard.resolve_grid_mesh`). ``device`` is where
-    the launches run (default ``cuda``).
+    ``chunk`` bounds the grid points per launch (memory bound); ``t_floor``
+    floors the pow2 time-axis bucket (default ``T_FLOOR``), so nearby
+    horizon lengths share a bucket.
+
+    ``mesh`` (None | int card count | list of devices | 1-D
+    :class:`repro_torch.launch.mesh.Mesh`) cuts every launch's grid rows
+    across its devices via :func:`repro_torch.fleet.shard.shard_grid`.
+    Buckets are keyed additionally on the mesh shape, and the effective
+    chunk is rounded up to a mesh-size multiple so every device owns an
+    equal slice. ``device`` is where the chunks are stacked and folded
+    (default: the mesh's first device, else ``cuda``).
     """
 
-    def __init__(self, *, chunk: int = 64, mesh=None, device=None):
+    #: Floor of the pow2 time-axis bucket (the reference's default).
+    T_FLOOR = 512
+    #: The launch body's argument axes, one per positional argument.
+    IN_AXES: tuple = ()
+
+    def __init__(self, *, chunk: int = 64, t_floor: int | None = None, mesh=None,
+                 device=None):
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
         self.chunk = chunk
+        self.t_floor = t_floor or self.T_FLOOR
         self.mesh = resolve_grid_mesh(mesh)
+        if device is None and self.mesh is not None:
+            device = self.mesh.devices[0]
         self.device = resolve_device(device)
         self.stats = obs.CompileStats(label=f"sweep.{type(self).__name__}")
         self._fns: dict[tuple, object] = {}
@@ -262,13 +279,20 @@ class ChunkedSweep:
 
     @property
     def mesh_shape(self) -> tuple:
-        """Device-mesh shape key: () on the single-device path."""
-        return ()
+        """Device-mesh shape key: () single-device, (D,) for a grid mesh."""
+        return () if self.mesh is None else tuple(self.mesh.shape)
+
+    @property
+    def mesh_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
 
     def _chunk_bucket(self, n_cases: int) -> int:
         """Effective per-launch chunk: pow2-bucketed grid size capped at
-        ``chunk``."""
-        return min(pow2_bucket(n_cases), self.chunk)
+        ``chunk``, then rounded up to a mesh-size multiple so
+        :func:`~repro_torch.fleet.shard.shard_grid` can cut it evenly."""
+        c = min(pow2_bucket(n_cases), self.chunk)
+        d = self.mesh_size
+        return -(-c // d) * d
 
     def _build(self, key: tuple, collect: bool = False):
         raise NotImplementedError
@@ -286,7 +310,10 @@ class ChunkedSweep:
             by_mesh[self.mesh_shape] = by_mesh.get(self.mesh_shape, 0) + 1
             with obs.span("sweep.trace", engine=type(self).__name__,
                           mesh=str(self.mesh_shape)):
-                fn = self._fns[(key, collect)] = self._build(key, collect)
+                fn = self._build(key, collect)
+                if self.mesh is not None:
+                    fn = shard_grid(fn, self.mesh, self.IN_AXES)
+                self._fns[(key, collect)] = fn
         return fn
 
     def _plan_for(self, cls: RequestClass, L: int, eq7_factor: float) -> ClassPlan:
@@ -412,15 +439,15 @@ class SweepResult:
 class FleetSweep(ChunkedSweep):
     """Chunked, shape-bucketed sweep over :class:`SweepCase` grids."""
 
-    #: Floor of the pow2 time-axis bucket (the reference's default).
-    T_FLOOR = 512
+    #: The launch body's (cfg, interarrivals, exps, count).
+    IN_AXES = (0, 0, 0, None)
 
     # -- bucket cache -------------------------------------------------------
 
     def bucket_key(self, n_cases: int, count: int, n_max: int, hk_len: int, hn_len: int):
         """The bucket a run with these shapes lands in (the reference's
         compilation-cache key, unchanged)."""
-        t_b = pow2_bucket(count, self.T_FLOOR)
+        t_b = pow2_bucket(count, self.t_floor)
         return (
             self._chunk_bucket(n_cases),
             t_b,

@@ -25,7 +25,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import layers as ly
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import _remat, chunked_ce_loss, init_generator
+from repro_torch.models.lm import _remat, chunked_ce_loss, init_generator, kv_cache_axes
 
 
 def _init_enc_block(gen: torch.Generator, cfg: ModelConfig, device):
@@ -62,6 +62,24 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None
         "decoder": [_init_dec_block(generator, cfg, dev) for _ in range(cfg.n_layers)],
         "ln_enc": ly.init_rmsnorm(cfg.d_model, dtype, dev),
         "ln_f": ly.init_rmsnorm(cfg.d_model, dtype, dev),
+    }
+
+
+def logical_axes(cfg: ModelConfig):
+    attn = ly.attention_logical_axes(cfg)
+    mlp = ly.mlp_logical_axes(cfg)
+    norm = {"scale": (None,)}
+    enc = {"ln1": norm, "attn": attn, "ln2": norm, "mlp": mlp}
+    dec = {
+        "ln1": norm, "self_attn": attn, "ln_x": norm,
+        "cross_attn": attn, "ln2": norm, "mlp": mlp,
+    }
+    return {
+        "embedding": ly.embedding_logical_axes(cfg),
+        "encoder": [enc for _ in range(cfg.encoder_layers)],
+        "decoder": [dec for _ in range(cfg.n_layers)],
+        "ln_enc": norm,
+        "ln_f": norm,
     }
 
 
@@ -123,6 +141,15 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
         "cross_k": zeros((L, B, T, Hkv, hd)),
         "cross_v": zeros((L, B, T, Hkv, hd)),
         "pos": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+def cache_logical_axes(cfg: ModelConfig, B: int):
+    kv = kv_cache_axes(cfg, B)
+    xkv = (None, "batch", None, "kv_heads", None)
+    return {
+        "k": kv, "v": kv, "slot_pos": (None, None),
+        "cross_k": xkv, "cross_v": xkv, "pos": (),
     }
 
 

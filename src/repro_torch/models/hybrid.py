@@ -18,8 +18,9 @@ The serving cache is ``{"mamba": (conv_buf, S, n), "k", "v", "slot_pos",
 preallocated cache layer by layer; the decode step writes each site's K/V
 in place (as :func:`repro_torch.models.layers.decode_attention` does) and
 returns new Mamba2 states, as the reference's. Serving runs under
-``torch.inference_mode()``. The reference's ``logical_axes`` and
-``cache_logical_axes`` wait for ROADMAP item 14.
+``torch.inference_mode()``. :func:`logical_axes` and
+:func:`cache_logical_axes` give the sharding plan's logical axes
+(:mod:`repro_torch.models.sharding`).
 """
 
 from __future__ import annotations
@@ -32,7 +33,15 @@ from repro_torch import resolve_device
 from repro_torch.models import layers as ly
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import _init_layers, _remat, _unstack, chunked_ce_loss, init_generator
+from repro_torch.models.lm import (
+    _init_layers,
+    _remat,
+    _unstack,
+    chunked_ce_loss,
+    init_generator,
+    kv_cache_axes,
+)
+from repro_torch.models.sharding import stacked
 
 
 def _attn_flags(cfg: ModelConfig) -> tuple[list[bool], list[int], int]:
@@ -72,6 +81,22 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None
             "mlp": ly.init_mlp(generator, cfg, dev),
         },
         "ln_f": ly.init_rmsnorm(cfg.d_model, dtype, dev),
+    }
+
+
+def logical_axes(cfg: ModelConfig):
+    norm = {"scale": (None,)}
+    return {
+        "embedding": ly.embedding_logical_axes(cfg),
+        "layers": {"ln": {"scale": (None, None)},
+                   "mamba": stacked(ssm.mamba2_logical_axes(cfg))},
+        "shared": {
+            "ln1": norm,
+            "attn": ly.attention_logical_axes(cfg),
+            "ln2": norm,
+            "mlp": ly.mlp_logical_axes(cfg),
+        },
+        "ln_f": norm,
     }
 
 
@@ -120,6 +145,18 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
         "v": torch.zeros((n_sites, B, Smax, Hkv, hd), dtype=ly.dt(cfg), device=dev),
         "slot_pos": torch.full((n_sites, Smax), ly.EMPTY_POS, dtype=torch.int32, device=dev),
         "pos": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+def cache_logical_axes(cfg: ModelConfig, B: int):
+    kv = kv_cache_axes(cfg, B)
+    return {
+        "mamba": (
+            (None, "batch", None, "ff"),          # conv buffer (L, B, K-1, dconv)
+            (None, "batch", "heads", None, None),  # S state (L, B, H, N, P)
+            (None, "batch", "heads", None),        # n state (L, B, H, N)
+        ),
+        "k": kv, "v": kv, "slot_pos": (None, None), "pos": (),
     }
 
 

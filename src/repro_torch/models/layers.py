@@ -16,8 +16,12 @@ Conventions:
     reference's chunk sizes, so float32 sums run in the same order), plain
     cached attention over a ring buffer for decode.
 
-The reference's sharding constraints and ``use_weight`` are identities
-without a device mesh and have no counterpart here.
+The ``*_logical_axes`` functions give each parameter's logical axes, as
+the reference's, for the sharding plan (:mod:`repro_torch.models.sharding`,
+:mod:`repro_torch.launch`). The reference's sharding constraints are not
+called in the forward passes: the port's models run on one card, where
+they are identities (:func:`repro_torch.models.sharding.constrain`,
+:func:`use_weight`).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import constrain
 
 #: ``slot_pos`` of an empty cache slot and ``kpos`` of a padded key.
 EMPTY_POS = -(2**30)
@@ -102,6 +107,26 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device=None):
         for name, width in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads), ("bv", cfg.n_kv_heads)):
             p[name] = torch.zeros((width * hd,), dtype=dtype, device=device or gen.device)
     return p
+
+
+def attention_logical_axes(cfg: ModelConfig):
+    p = {
+        "wq": ("embed", "heads"),
+        "wk": ("embed", "kv_heads"),
+        "wv": ("embed", "kv_heads"),
+        "wo": ("heads", "embed"),
+    }
+    if cfg.qkv_bias:
+        p.update({"bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",)})
+    return p
+
+
+def use_weight(cfg: ModelConfig, w, *axes):
+    """The reference's ``weight_gather`` lever constrains a stored
+    (FSDP-sharded) weight to its compute layout right before the
+    contraction; on one card that is the identity
+    (:func:`repro_torch.models.sharding.constrain`)."""
+    return constrain(w, *axes) if cfg.weight_gather else w
 
 
 def _softcap(x, cap):
@@ -340,6 +365,13 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, device=None):
     return p
 
 
+def mlp_logical_axes(cfg: ModelConfig):
+    p = {"wi": ("embed", "ff"), "wo": ("ff", "embed")}
+    if cfg.glu:
+        p["wg"] = ("embed", "ff")
+    return p
+
+
 def _act(cfg: ModelConfig, x):
     if cfg.mlp_act == "gelu":
         return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default form
@@ -365,6 +397,10 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig, device=None):
                         device=device or gen.device)
     return {"embed": table.to(dt(cfg)),
             "head": init_dense(gen, cfg.d_model, cfg.vocab, dt(cfg), device)}
+
+
+def embedding_logical_axes(cfg: ModelConfig):
+    return {"embed": ("vocab", "embed"), "head": ("embed", "vocab")}
 
 
 def embed(params, cfg: ModelConfig, tokens):

@@ -38,6 +38,7 @@ from repro_torch import resolve_device
 from repro_torch.models import layers as ly
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import stacked
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 AUX_LOSS_WEIGHT = 0.01
@@ -96,6 +97,19 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, device):
     return p
 
 
+def block_logical_axes(cfg: ModelConfig):
+    p = {
+        "ln1": {"scale": (None,)},
+        "attn": ly.attention_logical_axes(cfg),
+        "ln2": {"scale": (None,)},
+    }
+    if cfg.n_experts:
+        p["moe"] = moe_mod.moe_logical_axes(cfg)
+    else:
+        p["mlp"] = ly.mlp_logical_axes(cfg)
+    return p
+
+
 def _init_layers(gen: torch.Generator, cfg: ModelConfig, device, init_block=init_block):
     """The blocks' parameters (``init_block(gen, cfg, device)`` each) in the
     stacked layout: each (n_layers, ...) leaf allocated once and filled a
@@ -142,6 +156,19 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None
 # ---------------------------------------------------------------------------
 # forward + training loss
 # ---------------------------------------------------------------------------
+
+
+def logical_axes(cfg: ModelConfig):
+    """Tree of logical-axis tuples matching init(); stacked layers get a
+    leading None (layer axis unsharded)."""
+    p = {
+        "embedding": ly.embedding_logical_axes(cfg),
+        "layers": stacked(block_logical_axes(cfg)),
+        "ln_f": {"scale": (None,)},
+    }
+    if cfg.family == "vlm":
+        p["vision_proj"] = ("embed", None)
+    return p
 
 
 def _save_matmuls(ctx, op, *args, **kwargs):
@@ -260,6 +287,25 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
         "slot_pos": torch.full((L, Smax), ly.EMPTY_POS, dtype=torch.int32, device=dev),
         "pos": torch.zeros((), dtype=torch.int32, device=dev),
     }
+
+
+def kv_cache_axes(cfg: ModelConfig, B: int) -> tuple:
+    """Logical axes of a stacked (L, B, S, Hkv, hd) KV cache. B==1
+    (long-context) shards the cache sequence over 'model'; otherwise
+    batch+kv-heads."""
+    if B == 1:  # long-context: shard the cache sequence, not heads
+        return (None, None, "kv_seq", None, None)
+    if cfg.decode_cache_seq_shard:
+        # Batch × sequence sharding = the full 256-way cache split (kv_heads
+        # rarely divide the model axis; the sequence always does).
+        return (None, "batch", "kv_seq", None, None)
+    return (None, "batch", None, "kv_heads", None)
+
+
+def cache_logical_axes(cfg: ModelConfig, B: int):
+    """Logical axes matching init_cache's structure."""
+    kv = kv_cache_axes(cfg, B)
+    return {"k": kv, "v": kv, "slot_pos": (None, None), "pos": ()}
 
 
 @torch.inference_mode()

@@ -55,6 +55,17 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, device):
     return p
 
 
+def moe_logical_axes(cfg: ModelConfig):
+    p = {
+        "router": ("embed", None),
+        "wi": ("experts", "embed", "ff"),
+        "wo": ("experts", "ff", "embed"),
+    }
+    if cfg.glu:
+        p["wg"] = ("experts", "embed", "ff")
+    return p
+
+
 class _BmmF32(torch.autograd.Function):
     """Batched product of low-precision CUDA operands with float32 outputs
     at tensor-core speed (``torch.bmm(..., out_dtype=torch.float32)``,
@@ -76,10 +87,12 @@ class _BmmF32(torch.autograd.Function):
 def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(E, M, K) @ (E, K, N) → float32 (E, M, N), products summed in
     float32. On the card, bfloat16 operands stay bfloat16 (tensor cores);
-    on the CPU they are widened first."""
+    on the CPU they are widened first. ``meta`` tensors take the card's
+    branch, so a work count on ``meta`` (:mod:`repro_torch.launch`) counts
+    the card's operations."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.is_cuda:
+    if a.is_cuda or a.is_meta:
         return _BmmF32.apply(a, b)
     return torch.bmm(a.float(), b.float())
 

@@ -5,8 +5,9 @@ families: dense, moe and vlm (:mod:`~repro_torch.models.lm`), encdec, ssm
 (:mod:`~repro_torch.models.xlstm`) and hybrid. Every entry exposes
 ``init(generator, device)``, ``train_loss(params, batch)``,
 ``prefill(params, batch, max_seq)``,
-``decode_step(params, token, cache)``, ``init_cache(B, max_seq, device)``
-and ``prefill_tokens(params, tokens, max_seq)``, plus batch builders for
+``decode_step(params, token, cache)``, ``init_cache(B, max_seq, device)``,
+``prefill_tokens(params, tokens, max_seq)`` and ``logical_axes()`` (the
+sharding plan's, :mod:`repro_torch.models.sharding`), plus batch builders for
 tests and examples and :func:`params_from_numpy`, which carries the
 reference's parameters across.
 """
@@ -21,7 +22,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import encdec, hybrid, lm, xlstm
-from repro_torch.models.config import ModelConfig, ShapeSpec
+from repro_torch.models.config import SHAPES, ModelConfig, ShapeSpec, cell_is_runnable
 from repro_torch.tree import tree_map
 
 _FAMILY_MODULES = {**{family: lm for family in lm.FAMILIES}, "encdec": encdec, "ssm": xlstm,
@@ -74,6 +75,9 @@ class Arch:
         in, (logits, cache) out; the batch gets the zero non-token extras
         (vlm patches, encdec frames) on the tokens' device."""
         return self.module.prefill(params, self.cfg, zero_extras(self.cfg, tokens), max_seq)
+
+    def logical_axes(self):
+        return self.module.logical_axes(self.cfg)
 
 
 def _configs(smoke: bool):
@@ -137,3 +141,9 @@ def params_from_numpy(tree, device=None):
         return torch.from_numpy(a).to(dev)
 
     return tree_map(leaf, tree)
+
+
+def runnable_cells(arch: str) -> list[tuple[str, bool, str]]:
+    """[(shape_name, runnable, reason)] for the given architecture."""
+    cfg = _configs(False)[arch]
+    return [(s.name, *cell_is_runnable(cfg, s)) for s in SHAPES.values()]

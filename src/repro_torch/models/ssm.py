@@ -149,6 +149,17 @@ def init_mlstm(gen: torch.Generator, cfg: ModelConfig, device=None):
     }
 
 
+def mlstm_logical_axes(cfg: ModelConfig):
+    return {
+        "w_up": ("embed", "ff"),
+        "w_qkv": ("ff", None),
+        "w_if": ("ff", None),
+        "b_if": (None,),
+        "w_og": ("embed", "ff"),
+        "w_down": ("ff", "embed"),
+    }
+
+
 def _mlstm_gates(params, cfg: ModelConfig, h):
     """(input gate, log forget gate), float32, from ``h @ w_if + b_if`` in
     the model's dtype."""
@@ -225,6 +236,15 @@ def init_slstm(gen: torch.Generator, cfg: ModelConfig, device=None):
         "r_h": init_dense(gen, d, 4 * d, dtype, dev, scale=1.0 / math.sqrt(d) * 0.5),
         "b": torch.zeros((4 * d,), dtype=dtype, device=dev),
         "w_down": init_dense(gen, d, d, dtype, dev),
+    }
+
+
+def slstm_logical_axes(cfg: ModelConfig):
+    return {
+        "w_x": ("embed", None),
+        "r_h": ("embed", None),
+        "b": (None,),
+        "w_down": ("embed", None),
     }
 
 
@@ -312,6 +332,17 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig, device=None):
         "D": torch.ones((H,), dtype=torch.float32, device=dev),
         "dt_bias": torch.zeros((H,), dtype=torch.float32, device=dev),
         "w_out": init_dense(gen, di, d, dtype, dev),
+    }
+
+
+def mamba2_logical_axes(cfg: ModelConfig):
+    return {
+        "w_in": ("embed", "ff"),
+        "conv": (None, "ff"),
+        "A_log": (None,),
+        "D": (None,),
+        "dt_bias": (None,),
+        "w_out": ("ff", "embed"),
     }
 
 

@@ -11,8 +11,9 @@ state], "pos"}``: an sLSTM's ``(h, c, n, m)`` and an mLSTM's ``(S, n)``
 tuples, of no sequence length (``max_seq`` is accepted and unused).
 
 Entry points run under ``torch.inference_mode()`` for serving; the decode
-step returns new states, as the reference's. The reference's
-``logical_axes`` and ``cache_logical_axes`` wait for ROADMAP item 14.
+step returns new states, as the reference's. :func:`logical_axes` and
+:func:`cache_logical_axes` give the sharding plan's logical axes
+(:mod:`repro_torch.models.sharding`).
 """
 
 from __future__ import annotations
@@ -46,6 +47,19 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None
             "ln_f": ly.init_rmsnorm(cfg.d_model, dtype, dev)}
 
 
+def logical_axes(cfg: ModelConfig):
+    norm = {"scale": (None,)}
+    blocks = []
+    for i in range(cfg.n_layers):
+        cell = ssm.slstm_logical_axes(cfg) if _is_slstm(cfg, i) else ssm.mlstm_logical_axes(cfg)
+        blocks.append({"ln": norm, "cell": cell})
+    return {
+        "embedding": ly.embedding_logical_axes(cfg),
+        "blocks": blocks,
+        "ln_f": norm,
+    }
+
+
 def _apply_block(cfg: ModelConfig, i: int, blk, x, state=None):
     h = ly.rmsnorm(blk["ln"], x)
     block = ssm.slstm_block if _is_slstm(cfg, i) else ssm.mlstm_block
@@ -73,6 +87,16 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
     states = [ssm.slstm_state_init(cfg, B, dev) if _is_slstm(cfg, i)
               else ssm.mlstm_state_init(cfg, B, dev) for i in range(cfg.n_layers)]
     return {"states": states, "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def cache_logical_axes(cfg: ModelConfig, B: int):
+    states = []
+    for i in range(cfg.n_layers):
+        if _is_slstm(cfg, i):
+            states.append((("batch", None),) * 4)  # h, c, n, m: (B, d)
+        else:
+            states.append((("batch", "heads", None, None), ("batch", "heads", None)))
+    return {"states": states, "pos": ()}
 
 
 @torch.inference_mode()

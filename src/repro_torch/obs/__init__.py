@@ -56,6 +56,7 @@ from repro_torch.obs.slo import (
     slo_report,
 )
 from repro_torch.obs.profile import (
+    count_work,
     format_profile,
     profile_launch,
     profile_snapshot,
@@ -106,6 +107,7 @@ __all__ = [
     "burn_rate",
     "convergence",
     "slo_report",
+    "count_work",
     "profile_launch",
     "profile_snapshot",
     "format_profile",

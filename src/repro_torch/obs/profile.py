@@ -1,12 +1,16 @@
 """Per-launch profiling: counted work vs measured wall time, on H100 peaks.
 
 The port of the reference package's ``repro/obs/profile.py``.
-:func:`profile_launch` runs one callable at one argument shape once to count
-its work — matmul FLOPs from :class:`torch.utils.flop_counter.FlopCounterMode`,
-bytes from a dispatch mode that adds up every ATen operation's input and
-output tensors (views and allocations move nothing and are skipped), plus
-the analytic counts a hand-written kernel's wrapper reports through
-:func:`add_counts` (a ``ctypes`` launch is invisible to both modes) — then
+:func:`count_work` runs one callable once to count its work — matmul FLOPs
+from :class:`torch.utils.flop_counter.FlopCounterMode` (with a formula for
+``aten.bmm.dtype``, the MoE experts' float32-output product), bytes from a
+dispatch mode that adds up every ATen operation's input and output tensors
+(views and allocations move nothing and are skipped), plus the analytic
+counts a hand-written kernel's wrapper reports through :func:`add_counts`
+(a ``ctypes`` launch is invisible to both modes). It runs on ``meta``
+tensors too, which is how the launch planner (:mod:`repro_torch.launch`)
+counts a full-size cell without a card. :func:`profile_launch` counts one
+callable at one argument shape so, then
 makes ``warmup`` calls and takes the best of ``iters`` calls, each closed
 by ``torch.cuda.synchronize()`` on the card. From these it derives the
 roofline view: achieved GFLOP/s and GB/s, arithmetic intensity, the
@@ -81,6 +85,29 @@ class _ByteCounter(TorchDispatchMode):
         return out
 
 
+def _bmm_flop(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    """2·B·M·N·K for ``aten.bmm`` in both overloads: the default formula
+    takes ``aten.bmm.dtype``'s ``out_dtype`` for its ``out_shape`` and
+    raises."""
+    b, m, k = a_shape
+    return 2 * b * m * b_shape[2] * k
+
+
+def count_work(fn, *args, **kwargs) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call of ``fn(*args, **kwargs)``: see the module
+    docstring."""
+    tally = [0.0, 0.0]
+    token = _TALLY.set(tally)
+    try:
+        with (FlopCounterMode(display=False, custom_mapping={torch.ops.aten.bmm: _bmm_flop})
+              as flop_mode, _ByteCounter() as byte_mode):
+            fn(*args, **kwargs)
+    finally:
+        _TALLY.reset(token)
+    return (float(flop_mode.get_total_flops()) + tally[0],
+            float(byte_mode.nbytes) + tally[1])
+
+
 def profile_launch(label: str, fn, *args, warmup: int = 1, iters: int = 3,
                    peak_flops: float | None = None, peak_bw: float | None = None,
                    **kwargs) -> dict:
@@ -96,16 +123,8 @@ def profile_launch(label: str, fn, *args, warmup: int = 1, iters: int = 3,
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
 
-    tally = [0.0, 0.0]
-    token = _TALLY.set(tally)
-    try:
-        with _trace.get_tracer().span("obs.profile_count", label=label):
-            with FlopCounterMode(display=False) as flop_mode, _ByteCounter() as byte_mode:
-                fn(*args, **kwargs)
-    finally:
-        _TALLY.reset(token)
-    flops = float(flop_mode.get_total_flops()) + tally[0]
-    nbytes = float(byte_mode.nbytes) + tally[1]
+    with _trace.get_tracer().span("obs.profile_count", label=label):
+        flops, nbytes = count_work(fn, *args, **kwargs)
     sync()
 
     for _ in range(warmup):

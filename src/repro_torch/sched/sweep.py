@@ -188,8 +188,8 @@ class SchedSweep(ChunkedSweep):
     encoding) and the scan body (the joint multi-class core).
     """
 
-    #: Floor of the pow2 time-axis bucket (the reference's default).
-    T_FLOOR = 512
+    #: The launch body's (cfg, interarrivals, class ids, exps, count).
+    IN_AXES = (0, 0, 0, 0, None)
 
     # -- bucket cache -------------------------------------------------------
 
@@ -197,7 +197,7 @@ class SchedSweep(ChunkedSweep):
                    hk_len: int, hn_len: int):
         """The bucket a run with these shapes lands in (the reference's
         compilation-cache key, unchanged)."""
-        t_b = pow2_bucket(count, self.T_FLOOR)
+        t_b = pow2_bucket(count, self.t_floor)
         return (
             self._chunk_bucket(n_cases),
             t_b,

@@ -76,11 +76,13 @@ class TaskqSweep(ChunkedSweep):
     uses are counted in ``stats.traces``.
     """
 
-    #: Floor of the pow2 time-axis bucket (the reference's default).
-    T_FLOOR = 512
+    #: The launch body's (cfg, interarrivals, pool rows, pools, sizes, count):
+    #: the trace pools are grid-shared.
+    IN_AXES = (0, 0, 0, None, None, None)
 
-    def __init__(self, *, chunk: int = 64, q_cap: int = 128, mesh=None, device=None):
-        super().__init__(chunk=chunk, mesh=mesh, device=device)
+    def __init__(self, *, chunk: int = 64, q_cap: int = 128, t_floor: int | None = None,
+                 mesh=None, device=None):
+        super().__init__(chunk=chunk, t_floor=t_floor, mesh=mesh, device=device)
         if q_cap < 1:
             raise ValueError("q_cap must be >= 1")
         self.q_cap = q_cap
@@ -91,7 +93,7 @@ class TaskqSweep(ChunkedSweep):
                    hn_len: int, pool_shape: tuple):
         """The bucket a run with these shapes lands in (the reference's
         compilation-cache key, unchanged)."""
-        t_b = pow2_bucket(count, self.T_FLOOR)
+        t_b = pow2_bucket(count, self.t_floor)
         return (
             self._chunk_bucket(n_cases),
             t_b,

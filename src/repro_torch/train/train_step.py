@@ -5,9 +5,9 @@
 optionally accumulated over ``cfg.grad_accum`` microbatches, then AdamW.
 The AdamW math runs in float32 against float32 moments.
 
-The reference's sharding helpers (``param_specs``, ``opt_state_specs``,
-``batch_logical_axes``) need ``models/sharding.py`` and a device mesh; they
-wait for ROADMAP item 14.
+``batch_logical_axes``, ``param_specs`` and ``opt_state_specs`` give the
+sharding plan's specs (:mod:`repro_torch.models.sharding`); the port's
+step runs on one card whatever they say.
 """
 
 from __future__ import annotations
@@ -15,8 +15,29 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.registry import Arch
+from repro_torch.models.sharding import tree_specs
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+
+
+def batch_logical_axes(cfg):
+    axes = {"tokens": ("batch", None), "labels": ("batch", None)}
+    if cfg.family == "encdec":
+        axes["frames"] = ("batch", None, None)
+    if cfg.family == "vlm":
+        axes["patches"] = ("batch", None, None)
+    return axes
+
+
+def param_specs(arch: Arch, params_shapes):
+    """Spec tree for params (needs an active ``axis_rules`` context; every
+    spec is ``()`` outside one). ``params_shapes``: tensors (``meta`` ones
+    will do) or shapes."""
+    return tree_specs(params_shapes, arch.logical_axes())
+
+
+def opt_state_specs(p_specs):
+    return {"m": p_specs, "v": p_specs, "step": ()}
 
 
 def value_and_grad(arch: Arch, params, batch):

@@ -319,8 +319,9 @@ def test_sweep_refuses_what_is_not_ported():
         assert res.timeline.snapshot()["capacity"] == 64
     finally:
         obs.set_enabled(None)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        FleetSweep(mesh=2, device=CPU)
+    if torch.cuda.device_count() < 2:  # a mesh of two cards needs two cards
+        with pytest.raises(ValueError, match="devices"):
+            FleetSweep(mesh=2, device=CPU)
     # Greedy is not table-expressible; the refusal names the exact task
     # engine that runs it.
     with pytest.raises(ValueError, match=r"greedy.*repro_torch\.taskq\.TaskqSweep"):
@@ -447,3 +448,36 @@ def test_multi_class_grid_pads_tables_and_exps():
     out = res.to_numpy()
     assert out["k"][0].max() <= CLS.k_max and out["n"][0].max() <= CLS.n_max
     assert out["k"][1].max() <= wr.k_max and out["n"][1].max() <= wr.n_max
+
+
+@pytest.mark.parametrize("t_floor", [512, 2048])
+def test_t_floor_keys_and_runs_as_the_reference(t_floor):
+    """``t_floor=`` in the fleet and sched sweeps: the same bucket keys as
+    the reference's at the same floor, the same bucket uses and launches; a
+    floor of 2,048 moves a 700-arrival run from the 1,024 bucket to 2,048
+    in both packages."""
+    import repro.sched as ref_sched
+    from repro_torch.sched import DisciplineSpec, SchedSweep, sched_cases
+
+    want_t = 2048 if t_floor == 2048 else 1024
+    mine, ref = _sweep(chunk=16, t_floor=t_floor), ref_fleet.FleetSweep(chunk=16, t_floor=t_floor)
+    key = mine.bucket_key(4, 700, 12, 7, 13)
+    assert key == ref.bucket_key(4, 700, 12, 7, 13) and key[1] == want_t
+    cases = grid_cases([6.0, 30.0], [PolicySpec.tofec(), PolicySpec.static(6, 3)], [0], CLS, L)
+    ref_cases = ref_fleet.grid_cases([6.0, 30.0], [_ref_policy(PolicySpec.tofec()),
+                                                   _ref_policy(PolicySpec.static(6, 3))],
+                                     [0], REF_CLS, L)
+    res, ref_res = mine.run(cases, 700), ref.run(ref_cases, 700)
+    assert (res.compiles, res.launches) == (ref_res.compiles, ref_res.launches) == (1, 1)
+
+    sched, ref_s = (SchedSweep(chunk=16, t_floor=t_floor, device=CPU),
+                    ref_sched.SchedSweep(chunk=16, t_floor=t_floor))
+    key = sched.bucket_key(2, 700, 1, 12, 7, 13)
+    assert key == ref_s.bucket_key(2, 700, 1, 12, 7, 13) and key[1] == want_t
+    mix = TenantMix(20.0, (CLS,), (1.0,))
+    ref_mix = ref_fleet.TenantMix(20.0, (REF_CLS,), (1.0,))
+    got = sched.run(sched_cases([mix], [DisciplineSpec.fifo()], [0], L=L), 700)
+    want = ref_s.run(ref_sched.sched_cases([ref_mix], [ref_sched.DisciplineSpec.fifo()], [0],
+                                           L=L), 700)
+    assert (got.compiles, got.launches) == (want.compiles, want.launches) == (1, 1)
+    assert sched.stats.by_mesh == {(): 1}

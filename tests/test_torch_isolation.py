@@ -28,6 +28,7 @@ print("SLICE", sorted(m for m in sys.modules
                      if m.startswith(("repro_torch.taskq", "repro_torch.sched"))))
 print("LM", sorted(m for m in sys.modules
                   if m.startswith(("repro_torch.models", "repro_torch.configs"))))
+print("LAUNCH", sorted(m for m in sys.modules if m.startswith("repro_torch.launch")))
 print("OBS", sorted(m for m in sys.modules if m.startswith("repro_torch.obs")))
 print("TRAIN", sorted(m for m in sys.modules
                      if m.startswith(("repro_torch.train", "repro_torch.ckpt", "repro_torch.data",
@@ -51,8 +52,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                      ".pixtral_12b", ".qwen1_5_0_5b", ".whisper_base", ".xlstm_350m", ".yi_6b",
                      ".zamba2_2_7b")),
         ("models", ("", ".config", ".encdec", ".hybrid", ".layers", ".lm", ".moe", ".registry",
-                    ".ssm", ".xlstm")))
+                    ".sharding", ".ssm", ".xlstm")))
         for mod in mods])
+    assert lines["LAUNCH"] == str([f"repro_torch.launch{mod}" for mod in (
+        "", ".dryrun", ".mesh", ".report", ".roofline", ".specs")])
     assert lines["OBS"] == str([f"repro_torch.obs{mod}" for mod in (
         "", ".compile", ".dashboard", ".flight", ".meta", ".metrics", ".profile", ".slo",
         ".state", ".timeline", ".trace")])
@@ -73,3 +76,19 @@ def test_port_sources_name_no_jax_import():
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 top = words[1].split(".")[0]
                 assert top not in ("jax", "jaxlib", "repro"), f"{path}: {line}"
+
+
+#: Reference modules whose counterpart in the port has another name.
+RENAMED = {"core/jax_sim.py": "core/fluid_scan.py"}
+
+
+def test_every_reference_module_has_its_port():
+    """The port is complete: each module of ``src/repro/`` has a counterpart
+    at the same path in ``src/repro_torch/`` (or at its named rename)."""
+    ref, port = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
+    missing = [str(path) for path in sorted(p.relative_to(ref).as_posix()
+                                            for p in ref.rglob("*.py"))
+               if not (port / RENAMED.get(path, path)).is_file()]
+    assert missing == []
+    assert all((port / new).is_file() and not (port / old).exists()
+               for old, new in RENAMED.items())
