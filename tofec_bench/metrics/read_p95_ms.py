@@ -1,0 +1,4 @@
+"""95th percentile of the delay of an object read, from its due time to the
+proxy's t_done for its decoded bytes, over every read due in the window."""
+
+from tofec_bench.harness.readers import latency_p95_ms as read  # noqa: F401
