@@ -82,6 +82,8 @@ class _Backend:
     name = "base"
     #: device-resident, shape-bucketed backend (the reference's ``jitted``)
     on_device = False
+    #: rows and columns per GF(256) entry in what :meth:`prep_mats` returns
+    mat_bits = 1
 
     def __init__(self, stats: CodecStats, device: torch.device | None = None):
         self.stats = stats
@@ -169,6 +171,7 @@ class KernelBackend(_Backend):
 
     name = "kernel"
     on_device = True
+    mat_bits = 8
 
     def prep_mats(self, mats):
         """GF(2) bit-expansion (batch, m, k) → (batch, 8m, 8k) on host, then
@@ -213,6 +216,17 @@ class Codec:
             return (self.name,)
         m = k if kind == "dec" else n - k
         return (kind, k, pow2_bucket(m), pow2_bucket(B, self.B_FLOOR), pow2_bucket(batch))
+
+    def matmul_shapes(self, kind: str, n: int, k: int, B: int, batch: int) -> tuple:
+        """The coding matrices' and the data's shapes that a call with these
+        params hands the backend's matmul, after bucket padding and
+        ``prep_mats``: K1's operands on the kernel backend."""
+        m = k if kind == "dec" else n - k
+        if not self.backend.on_device:
+            return (batch, m, k), (batch, k, B)
+        _, _, m_b, B_b, batch_b = self.bucket_key(kind, n, k, B, batch)
+        bits = self.backend.mat_bits
+        return (batch_b, bits * m_b, bits * k), (batch_b, k, B_b)
 
     @staticmethod
     def _pad(arr, batch_b: int, B_b: int):

@@ -26,10 +26,12 @@ Layers:
   per-round phase breakdown.
 
 Everything is gated on ``REPRO_OBS=1`` (or :func:`set_enabled`); disabled,
-the layer costs one branch per site and changes no primary output.
+the layer costs one branch per site and changes no primary output. The
+host span tracer alone also records while a ``torch.profiler`` session runs
+(:func:`tracing`), which flips no engine's collection.
 Artifact metadata (:func:`run_meta`) names the card.
 """
-from repro_torch.obs.state import enabled, set_enabled
+from repro_torch.obs.state import enabled, set_enabled, tracing
 from repro_torch.obs.compile import CompileStats, compile_snapshot, register_stats
 from repro_torch.obs.metrics import (
     PICK_BINS,
@@ -73,6 +75,7 @@ from repro_torch.obs.flight import (
 from repro_torch.obs.trace import (
     Tracer,
     aggregate,
+    complete,
     get_tracer,
     instant,
     reset_trace,
@@ -86,6 +89,7 @@ from repro_torch.obs.meta import SCHEMA_VERSION, git_rev, run_meta
 __all__ = [
     "enabled",
     "set_enabled",
+    "tracing",
     "CompileStats",
     "compile_snapshot",
     "register_stats",
@@ -124,6 +128,7 @@ __all__ = [
     "span",
     "traced",
     "instant",
+    "complete",
     "get_tracer",
     "write_trace",
     "write_trace_doc",

@@ -7,8 +7,12 @@ microseconds) so :func:`write_trace` output loads directly in
 ``chrome://tracing`` / Perfetto; :func:`aggregate` gives per-span-name
 count/total/mean/max tables for quick terminal triage.
 
-When telemetry is disabled (see :mod:`repro_torch.obs.state`) entering a span is
-two attribute reads and a truth test — safe to leave on hot paths.
+Spans, instant marks and complete events record while
+:func:`repro_torch.obs.state.tracing` is true: under ``REPRO_OBS=1`` or while
+a ``torch.profiler`` session runs.  Otherwise entering a span is an
+environment read, an attribute read and a truth test — safe to leave on hot
+paths.  The tracer's clock anchor (:attr:`Tracer.anchor`) maps its monotonic
+times onto the wall clock, and from there onto the profiler's clock.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import threading
 import time
 import warnings
 
-from repro_torch.obs.state import enabled
+from repro_torch.obs.state import tracing
 
 
 def write_trace_doc(path: str, events: list) -> str:
@@ -42,10 +46,19 @@ class Tracer:
         self._lock = threading.Lock()
         self._events: list = []
         self._tls = threading.local()
+        w0 = time.time_ns()
         self._epoch = time.monotonic()
+        self._epoch_wall_ns = (w0 + time.time_ns()) // 2
         #: Spans entered but not yet exited; write_trace() auto-closes them.
         self._open: dict = {}
         self._warned_incomplete = False
+
+    @property
+    def anchor(self) -> tuple[float, int]:
+        """The tracer's epoch on ``time.monotonic()`` (seconds) and on
+        ``time.time_ns()``, taken together: an event at ``ts`` µs lies at
+        ``anchor[1] + ts * 1000`` ns of the wall clock."""
+        return self._epoch, self._epoch_wall_ns
 
     # ---- recording --------------------------------------------------------
     def _stack(self) -> list:
@@ -76,8 +89,8 @@ class Tracer:
     def instant(self, name: str, **tags) -> None:
         """Record a zero-duration instant mark (Chrome "i" phase event) —
         used for SLO breach / convergence events so they line up with the
-        compile/launch spans on the same timeline.  No-op when disabled."""
-        if not enabled():
+        compile/launch spans on the same timeline.  No-op unless tracing."""
+        if not tracing():
             return
         ev = {
             "name": name,
@@ -92,7 +105,18 @@ class Tracer:
         with self._lock:
             self._events.append(ev)
 
-    def _record(self, name, t0, t1, depth, parent, tags) -> None:
+    def complete(self, name: str, t0: float, t1: float, **tags) -> None:
+        """Record an interval measured elsewhere, ``time.monotonic()``
+        seconds at both ends, as a complete event on the calling thread.
+
+        Meant for a life no ``with`` block can hold (a proxy read crosses the
+        submitting thread, a connection and the admission thread). It records
+        unconditionally: the caller decides from :func:`tracing` when the
+        interval began, so an interval begun while tracing is recorded whole
+        even if it ends after tracing stopped."""
+        self._record(name, t0, t1, tags)
+
+    def _record(self, name, t0, t1, args) -> dict:
         ev = {
             "name": name,
             "ph": "X",
@@ -101,15 +125,22 @@ class Tracer:
             "dur": round((t1 - t0) * 1e6, 3),
             "pid": os.getpid(),
             "tid": threading.get_ident() % 2**31,
-            "args": {"depth": depth, "parent": parent, **tags},
+            "args": args,
         }
         with self._lock:
             self._events.append(ev)
+        return ev
 
     # ---- export -----------------------------------------------------------
     def events(self) -> list:
         with self._lock:
             return list(self._events)
+
+    def events_between(self, t0: float, t1: float) -> list:
+        """The events that began in ``[t0, t1)``, ``time.monotonic()``
+        seconds, in the order recorded."""
+        lo, hi = (t0 - self._epoch) * 1e6, (t1 - self._epoch) * 1e6
+        return [ev for ev in self.events() if lo <= ev["ts"] < hi]
 
     def aggregate(self) -> dict:
         """Per-span-name {count, total_us, mean_us, max_us}, by total desc.
@@ -165,13 +196,22 @@ class Tracer:
             )
         t1 = time.monotonic()
         for sp in stuck:
-            self._record(sp.name, sp._t0, t1, sp._depth, sp._parent,
-                         {**sp.tags, "incomplete": True})
+            self._record(sp.name, sp._t0, t1, {"depth": sp._depth, "parent": sp._parent,
+                                                **sp.tags, "incomplete": True})
 
-    def write_trace(self, path: str) -> str:
-        """Write Chrome trace_event JSON; returns the path."""
+    def write_trace(self, path: str, *, wall_clock: bool = False) -> str:
+        """Write Chrome trace_event JSON; returns the path.
+
+        With ``wall_clock`` the timestamps are µs of the wall clock
+        (``time.time_ns`` / 1000), to lay beside a ``torch.profiler`` trace
+        put on the same clock by its offset to it; otherwise µs since the
+        tracer's epoch."""
         self._close_incomplete()
-        return write_trace_doc(path, self.events())
+        events = self.events()
+        if wall_clock:
+            shift = self._epoch_wall_ns / 1e3
+            events = [{**ev, "ts": ev["ts"] + shift} for ev in events]
+        return write_trace_doc(path, events)
 
     def reset(self) -> None:
         with self._lock:
@@ -181,7 +221,7 @@ class Tracer:
 
 
 class _Span:
-    __slots__ = ("_tracer", "name", "tags", "_t0", "_depth", "_parent", "_on")
+    __slots__ = ("_tracer", "name", "tags", "_t0", "_depth", "_parent", "_on", "_event")
 
     def __init__(self, tracer: Tracer, name: str, tags: dict) -> None:
         self._tracer = tracer
@@ -189,7 +229,8 @@ class _Span:
         self.tags = tags
 
     def __enter__(self) -> "_Span":
-        self._on = enabled()
+        self._on = tracing()
+        self._event = None
         if not self._on:
             return self
         st = self._tracer._stack()
@@ -208,10 +249,19 @@ class _Span:
             with self._tracer._lock:
                 live = self._tracer._open.pop(id(self), None) is not None
             if live:  # not already auto-closed by write_trace()
-                self._tracer._record(
-                    self.name, self._t0, t1, self._depth, self._parent, self.tags
-                )
+                self._event = self._tracer._record(
+                    self.name, self._t0, t1,
+                    {"depth": self._depth, "parent": self._parent, **self.tags})
         return False
+
+    def tag(self, **tags) -> None:
+        """Add tags known only after the span closed (a device time read
+        once the stream has synced) to its recorded event."""
+        if self._on:
+            self.tags.update(tags)
+            if self._event is not None:
+                with self._tracer._lock:
+                    self._event["args"].update(tags)
 
 
 _TRACER = Tracer()
@@ -229,12 +279,16 @@ def instant(name: str, **tags) -> None:
     return _TRACER.instant(name, **tags)
 
 
+def complete(name: str, t0: float, t1: float, **tags) -> None:
+    return _TRACER.complete(name, t0, t1, **tags)
+
+
 def traced(name: str | None = None, **tags):
     return _TRACER.traced(name, **tags)
 
 
-def write_trace(path: str) -> str:
-    return _TRACER.write_trace(path)
+def write_trace(path: str, *, wall_clock: bool = False) -> str:
+    return _TRACER.write_trace(path, wall_clock=wall_clock)
 
 
 def aggregate() -> dict:

@@ -717,7 +717,7 @@ class ClosedLoopServer(_BucketStats):
                                                   rows.shape[2], len(good)),
                self.prompt_len, self.layout.strip_bytes, collect)
         self._note_bucket(key)
-        with obs.span("serve.launch", bucket=str(key), batch=len(good)):
+        with obs.span("serve.launch", bucket=str(key), batch=len(good)) as launch_span:
             rows_t, _ = self.step._upload(rows)
             if collect:
                 # The served reads' delays go up with the rows, before the
@@ -742,7 +742,7 @@ class ClosedLoopServer(_BucketStats):
                               delays=delays)
         self.stats.launches += 1
         mark1 = _mark(device)
-        with obs.span("serve.generate", steps=steps):
+        with obs.span("serve.generate", steps=steps) as generate_span:
             # Generation continues at the padded batch; rows are cut to the
             # served subset at the end.
             gen = self.engine.continue_greedy(logits, cache, steps)
@@ -752,6 +752,9 @@ class ClosedLoopServer(_BucketStats):
         # so this read costs no stall.
         next_code = (int(n_nxt), int(k_nxt))
         phase_ms["launch"], phase_ms["generate"] = _ms(mark0, mark1), _ms(mark1, mark2)
+        # The spans time the enqueue; their work's own time is known only now.
+        launch_span.tag(device_ms=phase_ms["launch"])
+        generate_span.tag(device_ms=phase_ms["generate"])
         if collect:
             # Where the round's budget went: "decode" is the whole launch
             # (upload + admission + K1 + prefill), "generate" the token loop.

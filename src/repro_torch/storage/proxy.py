@@ -42,11 +42,22 @@ that want the raw chunks instead (e.g. the fused serving step in
 :mod:`repro_torch.serve.engine`, which decodes inside its fused step) pass
 ``raw=True``; those requests skip proxy-side decode and return their
 surviving chunks + indices in :attr:`RequestResult.chunks`.
+
+Tracing (:func:`repro_torch.obs.tracing`, decided per request when it is
+submitted, so a request begun while tracing is recorded whole): a
+``proxy.pick`` instant per request (the backlog and idle connections the
+policy was given, the (n, k) used), a ``proxy.task`` complete event per chunk
+task (its connection time and outcome: ``used``, ``abandoned``, ``failed`` or
+``skipped``), a ``proxy.read`` complete event per read (arrival to answer,
+with its stages) and a ``proxy.decode`` complete event per batched decode
+(its reads, and the operand shapes the codec hands its kernel). Events of
+one request share its ``rid``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import queue as _queue
 import threading
@@ -82,6 +93,10 @@ class RequestResult:
     failures: int = 0
     #: raw reads only: surviving chunk index -> chunk bytes (data stays None)
     chunks: dict[int, bytes] | None = None
+    #: reads: when the k-th chunk arrived (None where the read failed first),
+    #: and when the batched decode that served it began (None for raw reads)
+    t_kth: float | None = None
+    t_decode: float | None = None
 
     @property
     def total_s(self) -> float:
@@ -97,7 +112,8 @@ class RequestResult:
 
 
 class _Request:
-    def __init__(self, op, key, layout, payload, payload_len, n, k, cls_id, raw=False):
+    def __init__(self, op, key, layout, payload, payload_len, n, k, cls_id, t_arrival,
+                 raw=False, rid=None):
         self.op = op
         self.key = key
         self.layout: SharedKeyLayout = layout
@@ -107,8 +123,13 @@ class _Request:
         self.k = k
         self.cls_id = cls_id
         self.raw = raw
-        self.t_arrival = time.monotonic()
+        #: the request's id in the trace, or None when it is not traced
+        self.rid = rid
+        self.traced = rid is not None
+        self.t_arrival = t_arrival
         self.t_first_start = None
+        self.t_kth = None
+        self.t_decode = None
         self.done = threading.Event()
         self.lock = threading.Lock()
         self.completed: dict[int, bytes] = {}
@@ -148,6 +169,7 @@ class Proxy:
         self._admit_backlog = 0
         self._state_lock = threading.Lock()
         self._shutdown = False
+        self._rids = itertools.count()
         self.results: list[RequestResult] = []
         self._threads = [
             threading.Thread(target=self._worker, daemon=True, name=f"proxy-{i}")
@@ -239,17 +261,23 @@ class Proxy:
     # -- internals ----------------------------------------------------------
 
     def _submit(self, op, key, layout, payload, payload_len, cls_id, raw=False) -> _Request:
+        t_arrival = time.monotonic()
+        rid = next(self._rids) if obs.tracing() else None
         with self._state_lock:
             q_len = self._request_q.qsize() + self._admit_backlog
             idle = self._idle
         pol = self.write_policy if (op == "write" and self.write_policy is not None) \
             else self.policy
-        n, k = pol.select(q=q_len, idle=idle, cls_id=cls_id, now=time.monotonic())
+        n, k = pol.select(q=q_len, idle=idle, cls_id=cls_id, now=t_arrival)
         # Clamp to what the layout supports: k | K, n ≤ N/m.
         k = max(kk for kk in layout.supported_k() if kk <= k)
         n_max, _, _ = layout.code_for_k(k)
         n = max(k, min(n, n_max))
-        req = _Request(op, key, layout, payload, payload_len, n, k, cls_id, raw=raw)
+        if rid is not None:
+            obs.instant("proxy.pick", rid=rid, op=op, q=q_len, idle=idle, n=n, k=k,
+                        cls_id=cls_id)
+        req = _Request(op, key, layout, payload, payload_len, n, k, cls_id, t_arrival,
+                       raw=raw, rid=rid)
         if op == "write":
             with self._state_lock:
                 self._write_reqs.append(req)
@@ -320,28 +348,42 @@ class Proxy:
         for r in reqs:
             groups.setdefault(r.layout, []).append(r)
         for lay, group in groups.items():
-            try:
-                datas = lay.reconstruct_batch(
-                    [(r.k, r.completed, r.payload_len) for r in group], codec=self.codec
-                )
-            except Exception as batch_err:
-                # Torn batch (e.g. one malformed chunk): fall back to
-                # per-request decode so one bad item can't wedge the rest.
-                _log.warning("batched reconstruct failed (%s); retrying "
-                             "per-request", batch_err)
-                for r in group:
-                    try:
-                        data = lay.reconstruct(r.k, r.completed, r.payload_len,
-                                               codec=self.codec)
-                        self._finish(r, True, data=data)
-                    except Exception:
-                        _log.exception("reconstruct failed for read %r "
-                                       "(k=%d, chunks=%s)", r.key, r.k,
-                                       sorted(r.completed))
-                        self._finish(r, False)
-                continue
-            for r, data in zip(group, datas):
-                self._finish(r, True, data=data)
+            t_decode = time.monotonic()
+            for r in group:
+                r.t_decode = t_decode
+            self._decode_group(lay, group)
+            rids = [r.rid for r in group if r.traced]
+            if rids:
+                mats, data = self.codec.matmul_shapes("dec", lay.N, lay.K, lay.strip_bytes,
+                                                      len(group))
+                obs.complete("proxy.decode", t_decode, time.monotonic(), reads=len(group),
+                             rids=rids, bitmat=list(mats), data=list(data))
+
+    def _decode_group(self, lay: SharedKeyLayout, group: list[_Request]) -> None:
+        """Decode one layout's completed reads in one batched call and answer
+        each."""
+        try:
+            datas = lay.reconstruct_batch(
+                [(r.k, r.completed, r.payload_len) for r in group], codec=self.codec
+            )
+        except Exception as batch_err:
+            # Torn batch (e.g. one malformed chunk): fall back to
+            # per-request decode so one bad item can't wedge the rest.
+            _log.warning("batched reconstruct failed (%s); retrying "
+                         "per-request", batch_err)
+            for r in group:
+                try:
+                    data = lay.reconstruct(r.k, r.completed, r.payload_len,
+                                           codec=self.codec)
+                    self._finish(r, True, data=data)
+                except Exception:
+                    _log.exception("reconstruct failed for read %r "
+                                   "(k=%d, chunks=%s)", r.key, r.k,
+                                   sorted(r.completed))
+                    self._finish(r, False)
+            return
+        for r, data in zip(group, datas):
+            self._finish(r, True, data=data)
 
     def _encode_pending_writes(self, pending: "deque[_Request]") -> None:
         """One batched encode per (layout, n, k) group of queued writes.
@@ -400,11 +442,16 @@ class Proxy:
                 return
             req, ci, blob = item
             if req.cancelled:
+                if req.traced:  # dropped before it started: no connection time
+                    t = time.monotonic()
+                    obs.complete("proxy.task", t, t, rid=req.rid, op=req.op, chunk=ci,
+                                 outcome="skipped")
                 continue
             with self._state_lock:
                 self._idle -= 1
+            t_start = time.monotonic() if req.traced or req.t_first_start is None else None
             if req.t_first_start is None:
-                req.t_first_start = time.monotonic()
+                req.t_first_start = t_start
             try:
                 if req.op == "read":
                     off, ln = req.layout.chunk_range(req.k, ci)
@@ -416,21 +463,30 @@ class Proxy:
             except StorageError:
                 ok = False
             finally:
+                t_end = time.monotonic() if req.traced else None
                 with self._state_lock:
                     self._idle += 1
-            self._on_task_done(req, ci, data if ok else None, ok)
+            outcome = self._on_task_done(req, ci, data if ok else None, ok)
+            if req.traced:
+                obs.complete("proxy.task", t_start, t_end, rid=req.rid, op=req.op, chunk=ci,
+                             outcome=outcome)
 
-    def _on_task_done(self, req: _Request, ci: int, data, ok: bool):
+    def _on_task_done(self, req: _Request, ci: int, data, ok: bool) -> str:
+        """Count one finished task toward its request; returns the task's
+        outcome: ``used`` (its chunk counted toward k, its part toward the
+        write), ``abandoned`` (the read already had k chunks or had failed:
+        the connection's time was spent for nothing) or ``failed``."""
         assemble = False
         with req.lock:
             if req.op == "read":
                 if req.cancelled:
-                    return
+                    return "abandoned"
                 if ok:
                     req.completed[ci] = data
                 else:
                     req.failures += 1
                 if len(req.completed) >= req.k:
+                    req.t_kth = time.monotonic()
                     req.cancelled = True  # preemptive cancellation of the rest
                     if not req.raw:
                         # Hand off to the admit loop: the round's completions
@@ -446,7 +502,7 @@ class Proxy:
                 elif req.failures > req.n_issued - req.k:
                     req.cancelled = True
                     self._finish(req, False)
-                return
+                return "used" if ok else "failed"
             # write: never cancelled — uploads past the k-th durable part run
             # as background tasks (footnote 1).
             if ok:
@@ -462,6 +518,7 @@ class Proxy:
                 assemble = True
         if assemble:
             self._finalize_write(req)
+        return "used" if ok else "failed"
 
     def _finalize_write(self, req: _Request) -> None:
         """All issued uploads resolved: assemble the durable parts into the
@@ -508,7 +565,7 @@ class Proxy:
         # writes: k parts durable → request complete; the remaining uploads
         # keep running in background (footnote 1) and _finalize_write
         # assembles the readable object once they all resolve.
-        req.result = RequestResult(
+        req.result = res = RequestResult(
             key=req.key,
             op=req.op,
             n=req.n,
@@ -520,9 +577,31 @@ class Proxy:
             t_done=time.monotonic(),
             failures=req.failures,
             chunks=chunks,
+            t_kth=req.t_kth,
+            t_decode=req.t_decode,
         )
+        if req.traced and req.op == "read":
+            obs.complete("proxy.read", res.t_arrival, res.t_done, rid=req.rid, n=req.n,
+                         k=req.k, ok=ok, raw=req.raw, **_stages_ms(res))
         self.results.append(req.result)
         req.done.set()
+
+
+def _stages_ms(res: RequestResult) -> dict:
+    """A read's life in stages that sum to ``total_s``, in ms: ``queue``
+    (arrival to its first task's start), ``store`` (to its k-th chunk) and,
+    where the proxy decoded it, ``decode_wait`` (to the start of the batched
+    decode that served it) and ``decode`` (to its answer). A raw or failed
+    read's ``store`` runs to its answer."""
+    t0, t1 = res.t_arrival, res.t_first_start
+    out = {"queue_ms": (t1 - t0) * 1e3}
+    if res.t_decode is None or res.t_kth is None:
+        out["store_ms"] = (res.t_done - t1) * 1e3
+    else:
+        out.update(store_ms=(res.t_kth - t1) * 1e3,
+                   decode_wait_ms=(res.t_decode - res.t_kth) * 1e3,
+                   decode_ms=(res.t_done - res.t_decode) * 1e3)
+    return out
 
 
 def store_coded_object(store: ObjectStore, key: str, layout: SharedKeyLayout, payload: bytes,
