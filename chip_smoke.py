@@ -1271,8 +1271,11 @@ def run_serve(device, *, smoke: bool = False, model: str = SERVE_MODEL,
             rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
             print(f"{tag} peak device memory over the rounds: "
                   f"{rec['peak_mem_bytes'] / 1e9:.3f} GB", flush=True)
-        if server.traces != 1:
-            raise AssertionError(f"{server.traces} shape buckets for {rounds} rounds, want 1")
+        # one shape bucket, and its decode step's capture where the engine replays graphs
+        want_traces = 1 + engine.uses_graphs
+        if server.traces != want_traces:
+            raise AssertionError(f"{server.traces} shape buckets and captures for {rounds} "
+                                 f"rounds, want {want_traces}")
 
         payload = rng.bytes(file_bytes)
         t0 = time.monotonic()
@@ -1290,7 +1293,8 @@ def run_serve(device, *, smoke: bool = False, model: str = SERVE_MODEL,
         rec["put_code"] = list(write_policy.code)
         print(f"{tag} write after the loop coded {write_policy.code} (the fed-back pick), "
               f"read back byte for byte, {rec['put_ms']:.3f} ms; {server.traces} shape bucket "
-              f"for {rounds} rounds", flush=True)
+              f"and decode captures for {rounds} rounds; decode steps replayed from a CUDA "
+              f"graph {engine.graph_replays}, eager {engine.eager_steps}", flush=True)
         if device.type == "cuda":
             rec["profile"] = profile_serve_round(serve, engine, prompts, list(range(per_round)),
                                                  rec["rounds"][1:], steps, tag=tag)

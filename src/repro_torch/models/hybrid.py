@@ -17,7 +17,8 @@ The serving cache is ``{"mamba": (conv_buf, S, n), "k", "v", "slot_pos",
 "pos"}``, the Mamba2 states stacked along the layers. Prefill fills a
 preallocated cache layer by layer; the decode step writes each site's K/V
 in place (as :func:`repro_torch.models.layers.decode_attention` does) and
-returns new Mamba2 states, as the reference's. Serving runs under
+returns new Mamba2 states, as the reference's, or writes them into a stack
+the caller gives (:data:`CUDA_GRAPH_DECODE`). Serving runs under
 ``torch.inference_mode()``. :func:`logical_axes` and
 :func:`cache_logical_axes` give the sharding plan's logical axes
 (:mod:`repro_torch.models.sharding`).
@@ -42,6 +43,11 @@ from repro_torch.models.lm import (
     kv_cache_axes,
 )
 from repro_torch.models.sharding import stacked
+
+#: The decode step may be captured as a CUDA graph and replayed: it makes no
+#: host sync and no data-dependent shape, keeps ``pos`` on the device, and
+#: writes its new states into a stack the caller passes (``into``).
+CUDA_GRAPH_DECODE = True
 
 
 def _attn_flags(cfg: ModelConfig) -> tuple[list[bool], list[int], int]:
@@ -197,10 +203,14 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int | None = None):
 
 
 @torch.inference_mode()
-def decode_step(params, cfg: ModelConfig, token, cache):
+def decode_step(params, cfg: ModelConfig, token, cache, into=None):
     """token: (B, 1) int32 → (logits (B, 1, V) float32, cache): new Mamba2
     states, each site's k, v and slot_pos updated in place, ``pos``
-    advanced (on the device)."""
+    advanced (on the device).
+
+    The new states go into a fresh stack, or into ``into``, a stack of the
+    cache's layout, which may be the cache's own: layer i's slot is read
+    only by layer i, before its new state is copied there."""
     if cache["mamba"][0] is None:
         raise ValueError(
             f"{cfg.name}: the cache has no Mamba2 conv buffer (its prefill had fewer than "
@@ -209,7 +219,7 @@ def decode_step(params, cfg: ModelConfig, token, cache):
     shared = params["shared"]
     flags, slots, _ = _attn_flags(cfg)
     pos = cache["pos"]
-    new = tuple(torch.empty_like(t) for t in cache["mamba"])
+    new = tuple(torch.empty_like(t) for t in cache["mamba"]) if into is None else into
     for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
         out, st = ssm.mamba2_decode_step(p["mamba"], cfg, ly.rmsnorm(p["ln"], x),
                                          tuple(t[i] for t in cache["mamba"]))

@@ -65,6 +65,7 @@ from repro_torch.core.delay_model import RequestClass
 from repro_torch.core.static_optimizer import build_class_plan
 from repro_torch.models.registry import Arch
 from repro_torch.storage.proxy import Proxy, store_coded_object
+from repro_torch.tree import tree_leaves, tree_map
 
 #: ServeTables.pol ids: threshold-table controllers (tofec / static / fixedk)
 #: vs the MPC cost-model argmin.
@@ -429,15 +430,114 @@ class ServeResult:
     next_code: tuple[int, int] | None = None  # fused path: controller's pick
 
 
+def greedy_step(arch: Arch, params, state: dict) -> torch.Tensor:
+    """One greedy decode step on the static buffers ``state``: a cache of
+    the arch's ``init_cache`` layout plus ``"tok"``, the (B, 1) int32 token.
+    The step reads the token and ``pos`` there and writes everything back
+    in place: the new recurrent states into the cache's own stack, the KV
+    ring, the argmax into ``"tok"``, and ``pos`` advanced. Returns the
+    step's (B, 1, V) logits.
+
+    This is the function :class:`DecodeBucket` captures as a CUDA graph;
+    the arch's family must declare its decode step safe to capture
+    (``CUDA_GRAPH_DECODE``), which includes taking ``into``."""
+    cache = {k: v for k, v in state.items() if k != "tok"}
+    logits, _ = arch.decode_step(params, state["tok"], cache, into=state["mamba"])
+    state["tok"].copy_(torch.argmax(logits, dim=-1))
+    state["pos"].add_(1)
+    return logits
+
+
+class DecodeBucket:
+    """Static buffers for greedy decode at one bucket (padded batch, KV
+    slots), and on a card the CUDA graph of one :func:`greedy_step` over
+    them.
+
+    :meth:`load` copies a round's token and cache in; each :meth:`step`
+    then advances the buffers by one token, replaying the graph where one
+    was captured and running :func:`greedy_step` eagerly otherwise."""
+
+    #: greedy steps run on a side stream before the capture (cuBLAS and
+    #: the allocator set up outside the graph)
+    WARMUP = 2
+
+    @torch.inference_mode()
+    def __init__(self, arch: Arch, params, tok: torch.Tensor, cache):
+        self.arch, self.params = arch, params
+        self.state = tree_map(torch.clone, {**cache, "tok": tok})
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.logits: torch.Tensor | None = None
+
+    @staticmethod
+    def key(tok: torch.Tensor, cache) -> tuple:
+        """The bucket of a round: the shape and dtype of every leaf of its
+        token and cache, the padded batch and the KV ring's slots among them."""
+        return tuple((tuple(t.shape), t.dtype) for t in tree_leaves({**cache, "tok": tok}))
+
+    @torch.inference_mode()
+    def load(self, tok: torch.Tensor, cache) -> None:
+        """Copy a round's token and prefill cache into the static buffers."""
+        for dst, src in zip(tree_leaves(self.state), tree_leaves({**cache, "tok": tok}),
+                            strict=True):
+            dst.copy_(src)
+
+    @torch.inference_mode()
+    def step(self) -> torch.Tensor:
+        """One greedy step; the logits (the graph's static output on a card:
+        the next step overwrites them)."""
+        if self.graph is None:
+            self.logits = greedy_step(self.arch, self.params, self.state)
+        else:
+            self.graph.replay()
+        return self.logits
+
+    @torch.inference_mode()
+    def capture(self, pool) -> None:
+        """Warm up on a side stream, then capture one step into ``pool``.
+        Both run on the buffers as they are; :meth:`load` the round after.
+        Raises ``RuntimeError`` where the capture fails: there is no eager
+        fallback on a card."""
+        device = self.state["tok"].device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP):
+                greedy_step(self.arch, self.params, self.state)
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            # thread_local: the proxy's threads may use the card meanwhile
+            with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+                logits = greedy_step(self.arch, self.params, self.state)
+        except RuntimeError as e:
+            raise RuntimeError(f"{self.arch.name}: capturing the decode step at batch "
+                               f"{self.state['tok'].shape[0]} failed") from e
+        self.graph, self.logits = graph, logits
+
+
 class ServingEngine:
     """Prefill + greedy cached decode of an :class:`Arch` on the device its
-    parameters lie on."""
+    parameters lie on.
+
+    On a card, an arch whose family declares its decode step safe to
+    capture (``CUDA_GRAPH_DECODE``, the hybrid family) decodes from CUDA
+    graphs: one :class:`DecodeBucket` per bucket, captured at its first
+    decode, all in one graph memory pool; each step is one replay. Every
+    other family, and every family on the CPU, runs the eager loop.
+    ``captures``, ``graph_replays`` and ``eager_steps`` count them."""
 
     def __init__(self, arch: Arch, params, *, max_seq: int = 128):
         self.arch = arch
         self.params = params
         self.max_seq = max_seq
         self.device = params["embedding"]["embed"].device
+        self.uses_graphs = (self.device.type == "cuda"
+                            and bool(getattr(arch.module, "CUDA_GRAPH_DECODE", False)))
+        self._buckets: dict[tuple, DecodeBucket] = {}
+        self._pool = None
+        self.captures = 0
+        self.graph_replays = 0
+        self.eager_steps = 0
 
     # -- storage integration -------------------------------------------------
 
@@ -493,14 +593,38 @@ class ServingEngine:
 
     def continue_greedy(self, logits: torch.Tensor, cache, steps: int) -> torch.Tensor:
         """Greedy generation from prefill's (logits, cache): (B, steps) int32
-        ids, left on the device (no host sync)."""
+        ids, left on the device (no host sync); the decode steps replay the
+        round's bucket where the engine uses graphs (see the class)."""
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         out = [tok[:, 0]]
-        for _ in range(steps - 1):  # the reference's last decode is never read
+        # steps - 1 decode steps: the reference's last decode is never read
+        if self.uses_graphs and steps > 1:
+            bucket = self.decode_bucket(tok, cache)
+            bucket.load(tok, cache)
+            for _ in range(steps - 1):
+                bucket.step()
+                out.append(bucket.state["tok"][:, 0].clone())
+            self.graph_replays += steps - 1
+            return torch.stack(out, dim=1)
+        for _ in range(steps - 1):
             logits, cache = self.arch.decode_step(self.params, tok, cache)
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
             out.append(tok[:, 0])
+        self.eager_steps += max(steps - 1, 0)
         return torch.stack(out, dim=1)
+
+    def decode_bucket(self, tok: torch.Tensor, cache) -> DecodeBucket:
+        """The round's bucket, captured on its first use."""
+        key = DecodeBucket.key(tok, cache)
+        bucket = self._buckets.get(key)
+        if bucket is None:
+            bucket = DecodeBucket(self.arch, self.params, tok, cache)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            bucket.capture(self._pool)
+            self._buckets[key] = bucket
+            self.captures += 1
+        return bucket
 
     def generate(self, prompts: np.ndarray, steps: int) -> np.ndarray:
         """prompts: (B, S) int32 → (B, steps) greedily generated ids. The vlm
@@ -579,7 +703,11 @@ class ClosedLoopServer(_BucketStats):
 
     The backlog signal is the round's request count. ``stats.traces``
     counts the first use of each shape bucket: the codec's decode bucket
-    extended with (prompt_len, strip_bytes), the prefill's shape inputs.
+    extended with (prompt_len, strip_bytes), the prefill's shape inputs;
+    and each decode bucket the engine captures as a CUDA graph in a round.
+    The ``serve.generate`` span is tagged with the round's decode steps
+    replayed from a graph (``graph_replays``) and run eagerly
+    (``eager_steps``).
     Batch varies within pow2 buckets; prefill and decode run at the padded
     batch and rows are cut to the served subset at the end.
 
@@ -742,19 +870,25 @@ class ClosedLoopServer(_BucketStats):
                               delays=delays)
         self.stats.launches += 1
         mark1 = _mark(device)
+        eng = self.engine
+        before = eng.captures, eng.graph_replays, eng.eager_steps
         with obs.span("serve.generate", steps=steps) as generate_span:
             # Generation continues at the padded batch; rows are cut to the
             # served subset at the end.
-            gen = self.engine.continue_greedy(logits, cache, steps)
+            gen = eng.continue_greedy(logits, cache, steps)
             mark2 = _mark(device)
             tokens = gen[: len(good)].cpu().numpy()
+        with self._lock:
+            self.stats.traces += eng.captures - before[0]
         # The pick comes to the host only now: generation forced the launch,
         # so this read costs no stall.
         next_code = (int(n_nxt), int(k_nxt))
         phase_ms["launch"], phase_ms["generate"] = _ms(mark0, mark1), _ms(mark1, mark2)
         # The spans time the enqueue; their work's own time is known only now.
         launch_span.tag(device_ms=phase_ms["launch"])
-        generate_span.tag(device_ms=phase_ms["generate"])
+        generate_span.tag(device_ms=phase_ms["generate"],
+                          graph_replays=eng.graph_replays - before[1],
+                          eager_steps=eng.eager_steps - before[2])
         if collect:
             # Where the round's budget went: "decode" is the whole launch
             # (upload + admission + K1 + prefill), "generate" the token loop.

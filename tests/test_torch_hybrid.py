@@ -308,6 +308,31 @@ def test_decode_matches_prefill_continuation():
     np.testing.assert_allclose(step_logits.numpy(), full_logits.numpy(), rtol=0.08, atol=0.08)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("target", ["own", "other"])
+def test_decode_into_a_given_stack_equals_the_fresh_stack(dtype, target):
+    """Eight decode steps writing the Mamba2 states into a given stack (the
+    cache's own, or another of its layout) equal the default's fresh stack
+    bit for bit: logits and the whole cache, every step."""
+    smoke = get(NAME, smoke=True)
+    arch = Arch(cfg=dataclasses.replace(smoke.cfg, dtype=dtype), module=hybrid)
+    params = arch.init(torch.Generator().manual_seed(4))
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, arch.cfg.vocab, size=(2, 10)).astype(np.int32))
+    _, cache = arch.prefill(params, {"tokens": toks}, max_seq=24)
+    fresh, given = cache, tree_map(torch.clone, cache)
+    for i in range(8):
+        tok = torch.from_numpy(rng.integers(0, arch.cfg.vocab, size=(2, 1)).astype(np.int32))
+        want, fresh = arch.decode_step(params, tok, fresh)
+        into = (given["mamba"] if target == "own"
+                else tuple(torch.empty_like(t) for t in given["mamba"]))
+        got, given = arch.decode_step(params, tok, given, into=into)
+        assert all(a is b for a, b in zip(given["mamba"], into))
+        assert torch.equal(got, want), i
+        for (path, g), (_, w) in zip(tree_flatten(given), tree_flatten(fresh), strict=True):
+            assert torch.equal(g, w), (i, path)
+
+
 # -- training -------------------------------------------------------------------------
 
 

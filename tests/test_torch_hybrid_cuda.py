@@ -10,7 +10,8 @@ a machine that has only PyTorch:
 TF32 is off (the products are float32 as on the CPU). float32 runs agree to
 1e-4 (two devices, other reduction orders) and bfloat16 runs to the
 reference's 0.08. Checkpoint strips coded by K1 equal the plain version's
-byte for byte."""
+byte for byte. The decode step replayed from a CUDA graph gives the eager
+loop's tokens, and its logits bit for bit."""
 
 import dataclasses
 
@@ -18,12 +19,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import obs
 from repro_torch.ckpt import save_checkpoint
 from repro_torch.coding.codec import Codec, pow2_bucket
+from repro_torch.coding.layout import SharedKeyLayout
+from repro_torch.core import PAPER_READ_3MB, FeedbackPolicy, RequestClass, StaticPolicy
 from repro_torch.kernels.gf2mm import gf2mm
-from repro_torch.models import get, ssm
+from repro_torch.models import get, hybrid, ssm
 from repro_torch.models.registry import Arch
-from repro_torch.storage import MemoryStore
+from repro_torch.serve import ClosedLoopServer, FusedServingStep, ServePolicy, ServingEngine
+from repro_torch.storage import MemoryStore, Proxy
 from repro_torch.train import init_opt_state, make_train_step
 from repro_torch.tree import tree_flatten, tree_map
 
@@ -180,3 +185,130 @@ def test_zamba2_checkpoint_strips_from_k1_equal_the_plain_versions(cuda):
     assert sorted(dev_store.keys()) == sorted(cpu_store.keys())
     for key in cpu_store.keys():
         assert dev_store.get(key) == cpu_store.get(key), key
+
+
+# -- the decode step replayed from CUDA graphs ----------------------------------------
+
+
+def _eager_decode(arch, params, logits, cache, steps):
+    """The eager greedy loop on a copy of the cache: (tokens (B, steps),
+    each decode step's logits)."""
+    cache = tree_map(torch.clone, cache)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    toks, logs = [tok[:, 0]], []
+    for _ in range(steps - 1):
+        logits, cache = arch.decode_step(params, tok, cache)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(tok[:, 0])
+        logs.append(logits)
+    return torch.stack(toks, dim=1), logs
+
+
+def _replay_equals_eager(engine, toks, steps):
+    """One round at ``toks``: the replayed bucket's tokens and logits against
+    the eager loop's, and ``continue_greedy``'s tokens."""
+    arch, params = engine.arch, engine.params
+    logits, cache = arch.prefill_tokens(params, toks, max_seq=engine.max_seq)
+    want, want_logits = _eager_decode(arch, params, logits, cache, steps)
+    got = engine.continue_greedy(logits, tree_map(torch.clone, cache), steps)
+    assert torch.equal(got, want)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    bucket = engine.decode_bucket(tok, cache)
+    assert bucket.graph is not None
+    bucket.load(tok, cache)
+    for i, w in enumerate(want_logits):
+        assert torch.equal(bucket.step(), w), f"step {i}"
+        assert torch.equal(bucket.state["tok"][:, 0], want[:, i + 1]), f"step {i}"
+
+
+def test_replayed_decode_equals_the_eager_loop_on_the_card(cuda):
+    """zamba2's smoke config at two buckets (batch 2 and 4), two rounds each
+    (prompts of 12 then 9 tokens on the same buffers): one capture per
+    bucket, steps − 1 replays per round."""
+    arch = get(NAME, smoke=True)
+    engine = ServingEngine(arch, arch.init(torch.Generator(device=cuda).manual_seed(3)),
+                           max_seq=20)
+    assert engine.uses_graphs
+    rng = np.random.default_rng(4)
+    steps = 6
+    for batch in (2, 4):
+        for prompt_len in (12, 9):
+            toks = torch.from_numpy(rng.integers(0, arch.cfg.vocab, (batch, prompt_len))
+                                    .astype(np.int32)).to(cuda)
+            _replay_equals_eager(engine, toks, steps)
+    assert engine.captures == 2
+    assert engine.graph_replays == 4 * (steps - 1) and engine.eager_steps == 0
+
+
+def test_replayed_decode_at_published_width(cuda):
+    """The whole zamba2-2.7b (54 layers, 9 sites) at 32 prompts of 128
+    tokens, 8 steps: tokens and logits of the replayed step against the
+    eager loop's."""
+    arch = get(NAME)
+    engine = ServingEngine(arch, arch.init(torch.Generator(device=cuda).manual_seed(5)),
+                           max_seq=136)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, arch.cfg.vocab, (32, 128))
+                            .astype(np.int32)).to(cuda)
+    _replay_equals_eager(engine, toks, 8)
+    assert engine.captures == 1 and engine.graph_replays == 7
+
+
+def test_the_closed_loop_counts_captures_and_replays_on_the_card(cuda):
+    """Two rounds of zamba2's smoke config served through the proxy: one
+    shape bucket and one capture in ``traces``, every decode step replayed,
+    the ``serve.generate`` spans tagged with the counts."""
+    arch = get(NAME, smoke=True)
+    engine = ServingEngine(arch, arch.init(torch.Generator(device=cuda).manual_seed(7)),
+                           max_seq=20)
+    layout = SharedKeyLayout(K=4, r=2, strip_bytes=16)
+    store = MemoryStore()
+    rng = np.random.default_rng(8)
+    keys = [f"p/{i}" for i in range(3)]
+    prompts = rng.integers(0, arch.cfg.vocab, (3, 16)).astype(np.int32)
+    for key, toks in zip(keys, prompts):
+        ServingEngine.store_prompt(store, key, layout, toks, codec=Codec("numpy"))
+    codec = Codec("kernel", device=cuda)
+    proxy = Proxy(store, StaticPolicy(8, 4), L=8, codec=codec,
+                  write_policy=FeedbackPolicy(layout.N, layout.K))
+    cls = RequestClass("read3mb", 3.0, PAPER_READ_3MB, k_max=6, r_max=2.0, n_max=12)
+    step = FusedServingStep.for_policy(ServePolicy.tofec(), cls, 16, codec=codec)
+    server = ClosedLoopServer(engine, proxy, layout, step, prompt_len=16)
+    obs.reset_trace()
+    obs.set_enabled(True)
+    try:
+        results = [server.serve_round(keys, steps=4) for _ in range(2)]
+        spans = [e for e in obs.get_tracer().events() if e["name"] == "serve.generate"]
+    finally:
+        obs.set_enabled(None)
+        obs.reset_trace()
+        proxy.close()
+    assert server.traces == 2 and engine.captures == 1
+    assert (engine.graph_replays, engine.eager_steps) == (6, 0)
+    assert [(e["args"]["graph_replays"], e["args"]["eager_steps"]) for e in spans] == [(3, 0)] * 2
+    want = _eager_decode(arch, engine.params, *arch.prefill_tokens(
+        engine.params, torch.from_numpy(np.concatenate([prompts, 0 * prompts[:1]])).to(cuda),
+        max_seq=20), 4)[0]
+    for res in results:
+        np.testing.assert_array_equal(res.tokens, want[:3].cpu().numpy())
+
+
+def test_a_failed_capture_raises(cuda, monkeypatch):
+    """A decode step that syncs with the host cannot be captured: the engine
+    raises, keeps no bucket, and does not decode eagerly instead."""
+    inner = hybrid.decode_step
+
+    def syncing(params, cfg, token, cache, into=None):
+        int(cache["pos"])  # a host sync, refused while the stream captures
+        return inner(params, cfg, token, cache, into=into)
+
+    monkeypatch.setattr(hybrid, "decode_step", syncing)
+    arch = get(NAME, smoke=True)
+    engine = ServingEngine(arch, arch.init(torch.Generator(device=cuda).manual_seed(9)),
+                           max_seq=20)
+    toks = torch.from_numpy(np.random.default_rng(10).integers(0, arch.cfg.vocab, (2, 12))
+                            .astype(np.int32)).to(cuda)
+    logits, cache = arch.prefill_tokens(engine.params, toks, max_seq=20)
+    with pytest.raises(RuntimeError, match="capturing the decode step"):
+        engine.continue_greedy(logits, cache, 3)
+    assert (engine.captures, engine.graph_replays, engine.eager_steps) == (0, 0, 0)
+    assert not engine._buckets

@@ -19,17 +19,23 @@ from repro.core.delay_model import PAPER_READ_3MB as REF_READ
 from repro.core.delay_model import RequestClass as RefRequestClass
 from repro.serve.engine import FusedServingStep as RefFusedServingStep
 from repro.serve.engine import ServePolicy as RefServePolicy
+from repro_torch import obs
 from repro_torch.coding import rs
 from repro_torch.coding.codec import Codec, pow2_bucket
 from repro_torch.coding.layout import SharedKeyLayout
-from repro_torch.core import PAPER_READ_3MB, FeedbackPolicy, RequestClass, TOFECPolicy
+from repro_torch.core import PAPER_READ_3MB, FeedbackPolicy, RequestClass, StaticPolicy, TOFECPolicy
+from repro_torch.models import get, registry
 from repro_torch.serve import (
+    ClosedLoopServer,
     FusedServingStep,
     ServePolicy,
+    ServingEngine,
     carry_from_arrays,
     serve_tables_from_arrays,
 )
+from repro_torch.serve.engine import DecodeBucket, greedy_step
 from repro_torch.storage import MemoryStore, Proxy
+from repro_torch.tree import tree_leaves, tree_map
 
 CPU = torch.device("cpu")
 L = 16
@@ -224,3 +230,117 @@ def test_slice_end_to_end_proxy_store_fused_step():
             write_policy.push(*pick)
     finally:
         proxy.close()
+
+
+# -- greedy decode on static buffers (the function a CUDA graph captures) ------
+
+
+def _eager_decode(arch, params, logits, cache, steps):
+    """The eager loop of ``ServingEngine.continue_greedy`` on a copy of the
+    cache: (tokens (B, steps), each decode step's logits)."""
+    cache = tree_map(torch.clone, cache)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    toks, logs = [tok[:, 0]], []
+    for _ in range(steps - 1):
+        logits, cache = arch.decode_step(params, tok, cache)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(tok[:, 0])
+        logs.append(logits)
+    return torch.stack(toks, dim=1), logs
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+def test_the_static_decode_loop_equals_the_eager_loop(batch):
+    """zamba2's smoke config, bfloat16: the static buffers of one bucket,
+    loaded and stepped by ``greedy_step`` run eagerly, give the eager
+    loop's tokens and logits bit for bit, over two rounds in a row on the
+    same buffers (prompts of 12 and then 9 tokens, so the second round's
+    copy-in replaces the first's states, ring and position)."""
+    arch = get("zamba2-2.7b", smoke=True)
+    params = arch.init(torch.Generator().manual_seed(4), device=CPU)
+    engine = ServingEngine(arch, params, max_seq=20)
+    rng = np.random.default_rng(5)
+    bucket, steps = None, 6
+    for prompt_len in (12, 9):
+        toks = torch.from_numpy(rng.integers(0, arch.cfg.vocab, (batch, prompt_len))
+                                .astype(np.int32))
+        logits, cache = arch.prefill_tokens(params, toks, max_seq=engine.max_seq)
+        want, want_logits = _eager_decode(arch, params, logits, cache, steps)
+        assert torch.equal(engine.continue_greedy(logits, tree_map(torch.clone, cache), steps),
+                           want)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        if bucket is None:
+            bucket = DecodeBucket(arch, params, tok, cache)
+            for _ in range(2):  # leave the buffers in another state than the round's
+                bucket.step()
+        assert DecodeBucket.key(tok, cache) == DecodeBucket.key(bucket.state["tok"],
+                                                                  bucket.state)
+        bucket.load(tok, cache)
+        got = [tok[:, 0]]
+        for i in range(steps - 1):
+            assert torch.equal(bucket.step(), want_logits[i]), (prompt_len, i)
+            got.append(bucket.state["tok"][:, 0].clone())
+        assert torch.equal(torch.stack(got, dim=1), want)
+        assert int(bucket.state["pos"]) == prompt_len + steps - 1
+
+
+def test_greedy_step_writes_every_buffer_in_place():
+    """One ``greedy_step`` keeps every buffer's storage and advances the
+    token, the states, the ring and the position there."""
+    arch = get("zamba2-2.7b", smoke=True)
+    params = arch.init(torch.Generator().manual_seed(6), device=CPU)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, arch.cfg.vocab, (2, 10))
+                            .astype(np.int32))
+    logits, cache = arch.prefill_tokens(params, toks, max_seq=16)
+    state = tree_map(torch.clone, {**cache, "tok": torch.argmax(logits, -1).to(torch.int32)})
+    before = {id(t): (t.data_ptr(), t.clone()) for t in tree_leaves(state)}
+    with torch.inference_mode():
+        greedy_step(arch, params, state)
+    for t in tree_leaves(state):
+        ptr, old = before[id(t)]
+        assert t.data_ptr() == ptr and not torch.equal(t, old)
+    assert int(state["pos"]) == 11
+
+
+def test_only_the_hybrid_family_declares_its_decode_step_capturable():
+    assert [f for f, m in registry._FAMILY_MODULES.items()
+            if getattr(m, "CUDA_GRAPH_DECODE", False)] == ["hybrid"]
+    for name in ("qwen1.5-0.5b", "zamba2-2.7b"):  # on the CPU no family replays
+        arch = get(name, smoke=True)
+        assert not ServingEngine(arch, arch.init(device=CPU)).uses_graphs
+
+
+@pytest.mark.parametrize("name", ["qwen1.5-0.5b", "zamba2-2.7b"])
+def test_the_closed_loop_counts_its_decode_steps(name):
+    """A dense and a hybrid smoke config served on the CPU: every decode
+    step eager, none captured or replayed, one bucket; the
+    ``serve.generate`` span carries the round's counts."""
+    arch = get(name, smoke=True)
+    engine = ServingEngine(arch, arch.init(torch.Generator().manual_seed(2), device=CPU),
+                           max_seq=24)
+    layout = SharedKeyLayout(K=4, r=2, strip_bytes=16)
+    codec = Codec("kernel", device=CPU)
+    store = MemoryStore()
+    rng = np.random.default_rng(8)
+    keys = [f"p/{i}" for i in range(3)]
+    for key in keys:
+        ServingEngine.store_prompt(store, key, layout,
+                                   rng.integers(0, arch.cfg.vocab, 16).astype(np.int32),
+                                   codec=codec)
+    proxy = Proxy(store, StaticPolicy(8, 4), L=8, codec=codec,
+                  write_policy=FeedbackPolicy(layout.N, layout.K))
+    step = FusedServingStep.for_policy(ServePolicy.tofec(), CLS, L, codec=codec)
+    server = ClosedLoopServer(engine, proxy, layout, step, prompt_len=16)
+    obs.reset_trace()
+    obs.set_enabled(True)
+    try:
+        for _ in range(2):
+            server.serve_round(keys, steps=4)
+        spans = [e for e in obs.get_tracer().events() if e["name"] == "serve.generate"]
+    finally:
+        obs.set_enabled(None)
+        obs.reset_trace()
+        proxy.close()
+    assert (engine.captures, engine.graph_replays, engine.eager_steps) == (0, 0, 6)
+    assert server.traces == 1
+    assert [(e["args"]["graph_replays"], e["args"]["eager_steps"]) for e in spans] == [(0, 3)] * 2
