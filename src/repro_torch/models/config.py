@@ -17,7 +17,7 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm | nemotron_h
     n_layers: int
     d_model: int
     n_heads: int
@@ -26,10 +26,11 @@ class ModelConfig:
     vocab: int
     head_dim: int | None = None
     # MLP
-    mlp_act: str = "silu"  # silu | gelu
+    mlp_act: str = "silu"  # silu | gelu | relu2 (relu(x)²)
     glu: bool = True
     # attention details
     qkv_bias: bool = False
+    use_rope: bool = True  # False: no position embedding (NoPE)
     rope_theta: float = 10_000.0
     sliding_window: int | None = None  # all layers SWA (mixtral)
     local_global_period: int | None = None  # gemma2: every other layer local
@@ -37,15 +38,28 @@ class ModelConfig:
     attn_softcap: float | None = None
     logit_softcap: float | None = None
     # MoE
-    n_experts: int = 0
+    n_experts: int = 0  # the experts held here (all of them, unless expert parallel)
     top_k: int = 2
     capacity_factor: float = 1.25
+    router_experts: int = 0  # the router's width; 0: n_experts
+    expert_first: int = 0  # the first expert held here
+    routed_scale: float = 1.0  # the routed experts' weights times this
+    shared_expert_ff: int = 0  # the shared expert's width (nemotron_h)
     # SSM / recurrent
     ssm_state: int = 64
     ssm_conv: int = 4
     ssm_expand: int = 2
     slstm_every: int = 0  # xlstm: every j-th layer is an sLSTM block
     attn_every: int = 0  # zamba2: shared attention block every j layers
+    # Mamba2's own sizes (0: the attention's n_heads, ssm_expand·d_model
+    # wide, B and C per head) and its published extras
+    mamba_heads: int = 0
+    mamba_head_dim: int = 0
+    mamba_groups: int = 0  # B, C shared by groups of heads
+    ssm_conv_bias: bool = False
+    ssm_gated_norm: bool = False  # grouped RMSNorm of y·silu(z) before w_out
+    # nemotron_h: one character per layer, M Mamba2, E MoE, * attention
+    layer_pattern: str = ""
     # encoder-decoder (whisper)
     encoder_layers: int = 0
     encoder_seq: int = 1500  # whisper-base 30 s → 1500 frames (stub frontend)
@@ -53,6 +67,8 @@ class ModelConfig:
     vision_patches: int = 1024  # stub ViT output length
     # numerics
     dtype: str = "bfloat16"
+    norm_eps: float = 1e-6  # the nemotron_h family's RMSNorm eps
+    embed_scale: bool = True  # embeddings times sqrt(d_model)
     # training-time knobs (hillclimbing levers; see EXPERIMENTS.md §Perf)
     remat_policy: str = "nothing"  # nothing | dots | full
     seq_shard_activations: bool = True  # Megatron-SP style residual sharding
@@ -81,6 +97,26 @@ class ModelConfig:
     @property
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv_heads
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.mamba_heads or self.n_heads
+
+    @property
+    def ssm_head_dim(self) -> int:
+        return self.mamba_head_dim or self.ssm_expand * self.d_model // self.ssm_heads
+
+    @property
+    def ssm_inner(self) -> int:
+        return self.ssm_heads * self.ssm_head_dim
+
+    @property
+    def ssm_groups(self) -> int:
+        return self.mamba_groups or self.ssm_heads
+
+    @property
+    def n_router(self) -> int:
+        return self.router_experts or self.n_experts
 
     @property
     def is_recurrent(self) -> bool:

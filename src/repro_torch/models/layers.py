@@ -134,16 +134,19 @@ def _softcap(x, cap):
 
 
 def project_q(params, cfg: ModelConfig, x, positions):
-    """The roped (B, S, H, hd) queries of ``x``."""
+    """The (B, S, H, hd) queries of ``x``, roped unless ``cfg.use_rope`` is
+    off."""
     B, S, _ = x.shape
     q = x @ params["wq"]
     if cfg.qkv_bias:
         q = q + params["bq"]
-    return rope(q.reshape(B, S, cfg.n_heads, cfg.hd), positions, cfg.rope_theta)
+    q = q.reshape(B, S, cfg.n_heads, cfg.hd)
+    return rope(q, positions, cfg.rope_theta) if cfg.use_rope else q
 
 
 def project_kv(params, cfg: ModelConfig, x, positions):
-    """The roped (B, S, Hkv, hd) keys and the values of ``x``."""
+    """The (B, S, Hkv, hd) keys, roped unless ``cfg.use_rope`` is off, and
+    the values of ``x``."""
     B, S, _ = x.shape
     k = x @ params["wk"]
     v = x @ params["wv"]
@@ -152,7 +155,7 @@ def project_kv(params, cfg: ModelConfig, x, positions):
         v = v + params["bv"]
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.hd)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    return rope(k, positions, cfg.rope_theta), v
+    return (rope(k, positions, cfg.rope_theta) if cfg.use_rope else k), v
 
 
 def _project_qkv(params, cfg: ModelConfig, x, positions):
@@ -375,6 +378,8 @@ def mlp_logical_axes(cfg: ModelConfig):
 def _act(cfg: ModelConfig, x):
     if cfg.mlp_act == "gelu":
         return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default form
+    if cfg.mlp_act == "relu2":
+        return torch.square(F.relu(x))
     return F.silu(x)
 
 
@@ -405,7 +410,7 @@ def embedding_logical_axes(cfg: ModelConfig):
 
 def embed(params, cfg: ModelConfig, tokens):
     x = params["embed"][tokens.to(torch.int64)].to(dt(cfg))
-    return x * math.sqrt(cfg.d_model)
+    return x * math.sqrt(cfg.d_model) if cfg.embed_scale else x
 
 
 def logits(params, cfg: ModelConfig, x):

@@ -110,16 +110,18 @@ def block_logical_axes(cfg: ModelConfig):
     return p
 
 
-def _init_layers(gen: torch.Generator, cfg: ModelConfig, device, init_block=init_block):
+def _init_layers(gen: torch.Generator, cfg: ModelConfig, device, init_block=init_block,
+                 n: int | None = None):
     """The blocks' parameters (``init_block(gen, cfg, device)`` each) in the
-    stacked layout: each (n_layers, ...) leaf allocated once and filled a
-    block at a time, drawn block after block, so only one block is ever
-    held twice."""
+    stacked layout: each (n, ...) leaf (n defaults to ``cfg.n_layers``)
+    allocated once and filled a block at a time, drawn block after block,
+    so only one block is ever held twice."""
+    n = cfg.n_layers if n is None else n
     stacked = None
-    for i in range(cfg.n_layers):
+    for i in range(n):
         block = init_block(gen, cfg, device)
         if stacked is None:
-            stacked = tree_map(lambda t: torch.empty((cfg.n_layers, *t.shape), dtype=t.dtype,
+            stacked = tree_map(lambda t: torch.empty((n, *t.shape), dtype=t.dtype,
                                                      device=t.device), block)
         tree_map(lambda dst, src: dst[i].copy_(src), stacked, block)
     return stacked

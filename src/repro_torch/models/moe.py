@@ -151,3 +151,113 @@ def moe_mlp(params, cfg: ModelConfig, x: torch.Tensor, *, dropless: bool = False
     w = (topw.reshape(B * S * K) * keep.reshape(-1))[:, None]
     out = (y[idx] * w).reshape(B, S, K, d).sum(dim=2).to(x.dtype)
     return out, aux
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel layer with sort-based dispatch (the nemotron_h family)
+# ---------------------------------------------------------------------------
+#
+# The router scores all ``cfg.n_router`` experts; this chip holds experts
+# [expert_first, expert_first + n_experts) and computes their part of the
+# result, plus the shared expert, which every chip computes alike. The
+# (token, choice) pairs are sorted by held expert (pairs on experts held
+# elsewhere last) and each held expert's rows run through one grouped
+# product: B·S·K rows whatever the routing, per-expert ends kept on the
+# device, so the shapes are static and the step can be captured.
+
+#: what the layer counts into a ``counters`` tensor, in order: routed
+#: (token, choice) pairs, pairs on held experts, held experts hit, the most
+#: loaded held expert's pairs, and layer calls
+COUNTERS = ("routed_pairs", "held_pairs", "held_experts_hit", "peak_expert_pairs",
+            "layer_steps")
+
+
+def init_routed_moe(gen: torch.Generator, cfg: ModelConfig, device):
+    """The float32 router over all ``cfg.n_router`` experts and its zero
+    correction bias ``b_corr``, the held experts' (E, d, f) and (E, f, d)
+    stacks, and the shared expert (``cfg.shared_expert_ff`` wide), drawn on
+    ``device``."""
+    E, R, d, f = cfg.n_experts, cfg.n_router, cfg.d_model, cfg.d_ff
+
+    def draw(shape, dtype):
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+        return (w / math.sqrt(shape[-2])).to(dtype)
+
+    fs = cfg.shared_expert_ff
+    return {
+        "router": draw((d, R), torch.float32),
+        "b_corr": torch.zeros((R,), dtype=torch.float32, device=device),
+        "wi": draw((E, d, f), dt(cfg)),
+        "wo": draw((E, f, d), dt(cfg)),
+        "shared": {"wi": draw((d, fs), dt(cfg)), "wo": draw((fs, d), dt(cfg))},
+    }
+
+
+def route_sigmoid(params, cfg: ModelConfig, x: torch.Tensor):
+    """x: (T, d) → (expert ids (T, K) over the router's width, weights (T, K)
+    float32): the top K of sigmoid(x·router) + b_corr, weighted by their
+    sigmoid scores over the scores' sum, times ``cfg.routed_scale``."""
+    scores = torch.sigmoid(x.to(torch.float32) @ params["router"])
+    ids = torch.topk(scores + params["b_corr"], cfg.top_k, dim=-1).indices
+    w = torch.gather(scores, -1, ids)
+    return ids, w / (w.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scale
+
+
+def grouped_mm(a: torch.Tensor, b: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """Rows ``ends[e-1]:ends[e]`` of ``a`` (M, k) times ``b[e]`` (E, k, n),
+    for each e; the rows past ``ends[-1]`` are left unwritten. On the card
+    one grouped GEMM (``torch._grouped_mm``, bfloat16, float32 sums); on
+    the CPU a product per expert (the ends come to the host)."""
+    if a.is_cuda:
+        return torch._grouped_mm(a, b, offs=ends)
+    out = a.new_empty((a.shape[0], b.shape[-1]))
+    lo = 0
+    for e, hi in enumerate(ends.tolist()):
+        out[lo:hi] = a[lo:hi] @ b[e]
+        lo = hi
+    return out
+
+
+def held_experts(params, cfg: ModelConfig, x: torch.Tensor, counters=None) -> torch.Tensor:
+    """x: (T, d) → the held experts' part of the layer, (T, d) float32: the
+    weighted sum over the token's choices that land on a held expert. Each
+    layer call adds its :data:`COUNTERS` to ``counters`` (an int64 tensor
+    of that length) on the device."""
+    T, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    ids, w = route_sigmoid(params, cfg, x)
+    local = (ids - cfg.expert_first).reshape(-1)  # (T·K,) pairs, token-major
+    key = torch.where((local >= 0) & (local < E), local, E)  # E: held elsewhere
+    order = torch.argsort(key, stable=True)
+    counts = torch.zeros(E + 1, dtype=torch.int64, device=x.device).scatter_add_(
+        0, key, torch.ones_like(key))
+    ends = torch.cumsum(counts[:E], 0, dtype=torch.int32)
+    rows = x.index_select(0, order // K)  # (T·K, d): each pair's token, by expert
+    h = _act(cfg, grouped_mm(rows, params["wi"], ends).to(torch.float32)).to(x.dtype)
+    y = grouped_mm(h, params["wo"], ends)
+    held = (key.index_select(0, order) < E)[:, None]
+    y = torch.where(held, y.to(torch.float32) * w.reshape(-1).index_select(0, order)[:, None],
+                    0.0)
+    # back to pair order (a permutation), then each token's K choices summed
+    out = torch.empty_like(y).index_copy_(0, order, y).reshape(T, K, d).sum(dim=1)
+    if counters is not None:
+        c = counts[:E]
+        counters.add_(torch.stack([counts.sum(), c.sum(), (c > 0).sum(), c.max(),
+                                   torch.ones_like(c[0])]))
+    return out
+
+
+def shared_expert(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """x: (T, d) → the shared expert's (T, d) float32 output."""
+    p = params["shared"]
+    h = _act(cfg, (x @ p["wi"]).to(torch.float32)).to(x.dtype)
+    return (h @ p["wo"]).to(torch.float32)
+
+
+def routed_moe(params, cfg: ModelConfig, x: torch.Tensor, counters=None) -> torch.Tensor:
+    """x: (B, S, d) → (B, S, d): the held experts' part plus the shared
+    expert's, summed in float32 and cast once."""
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    out = held_experts(params, cfg, xt, counters) + shared_expert(params, cfg, xt)
+    return out.to(x.dtype).reshape(B, S, d)

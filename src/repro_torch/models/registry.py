@@ -2,7 +2,9 @@
 
 Mirrors the reference package's ``repro/models/registry.py`` for all six
 families: dense, moe and vlm (:mod:`~repro_torch.models.lm`), encdec, ssm
-(:mod:`~repro_torch.models.xlstm`) and hybrid. Every entry exposes
+(:mod:`~repro_torch.models.xlstm`) and hybrid; and serves the port's own
+nemotron_h family (:mod:`~repro_torch.models.nemotron_h`), which
+:func:`arch_names` leaves out. Every entry exposes
 ``init(generator, device)``, ``train_loss(params, batch)``,
 ``prefill(params, batch, max_seq)``,
 ``decode_step(params, token, cache)``, ``init_cache(B, max_seq, device)``,
@@ -21,12 +23,12 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import encdec, hybrid, lm, xlstm
+from repro_torch.models import encdec, hybrid, lm, nemotron_h, xlstm
 from repro_torch.models.config import SHAPES, ModelConfig, ShapeSpec, cell_is_runnable
 from repro_torch.tree import tree_map
 
 _FAMILY_MODULES = {**{family: lm for family in lm.FAMILIES}, "encdec": encdec, "ssm": xlstm,
-                   "hybrid": hybrid}
+                   "hybrid": hybrid, "nemotron_h": nemotron_h}
 
 
 def zero_extras(cfg: ModelConfig, tokens: torch.Tensor) -> dict:
@@ -72,17 +74,20 @@ class Arch:
     def init_cache(self, B, max_seq, device=None):
         return self.module.init_cache(self.cfg, B, max_seq, device=device)
 
-    def prefill_tokens(self, params, tokens, max_seq=None):
+    def prefill_tokens(self, params, tokens, max_seq=None, **kw):
         """Tokens-only prefill (fused-serving contract): (B, S) int32 tensor
         in, (logits, cache) out; the batch gets the zero non-token extras
-        (vlm patches, encdec frames) on the tokens' device."""
-        return self.module.prefill(params, self.cfg, zero_extras(self.cfg, tokens), max_seq)
+        (vlm patches, encdec frames) on the tokens' device. ``kw`` goes to
+        the family's own (nemotron_h's ``marks``)."""
+        return self.module.prefill(params, self.cfg, zero_extras(self.cfg, tokens), max_seq,
+                                   **kw)
 
     def logical_axes(self):
         return self.module.logical_axes(self.cfg)
 
 
 def _configs(smoke: bool):
+    """The architectures the port shares with the reference package."""
     # Imported lazily: repro_torch.configs modules import
     # repro_torch.models.config, which would otherwise make this circular.
     from repro_torch.configs import ALL_CONFIGS, SMOKE_CONFIGS
@@ -90,8 +95,15 @@ def _configs(smoke: bool):
     return SMOKE_CONFIGS if smoke else ALL_CONFIGS
 
 
+def _port_configs(smoke: bool):
+    """The architectures only the port has."""
+    from repro_torch.configs import PORT_CONFIGS, PORT_SMOKE_CONFIGS
+
+    return PORT_SMOKE_CONFIGS if smoke else PORT_CONFIGS
+
+
 def get(name: str, smoke: bool = False) -> Arch:
-    cfgs = _configs(smoke)
+    cfgs = {**_configs(smoke), **_port_configs(smoke)}
     if name not in cfgs:
         raise KeyError(f"unknown arch {name!r}; the port has {sorted(cfgs)}")
     cfg = cfgs[name]
@@ -99,7 +111,10 @@ def get(name: str, smoke: bool = False) -> Arch:
 
 
 def arch_names() -> list[str]:
+    """The architectures the port shares with the reference package, in its
+    order."""
     return list(_configs(False))
+
 
 
 def make_batch(cfg: ModelConfig, shape: ShapeSpec, rng: np.random.Generator | None = None,

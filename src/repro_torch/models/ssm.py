@@ -18,6 +18,13 @@ over its (x, B, C) streams and the recurrence without the normalizer, the
 state's per-head decay set by dt. Decode forms are the exact O(1)
 recurrences and return new states (the reference's copies).
 
+Mamba2's sizes are its own where the config gives them (``mamba_heads``,
+``mamba_head_dim``, B and C shared over ``mamba_groups``, a conv bias, the
+gated RMSNorm of y·silu(z) before the output projection: the published
+layer); by default they are zamba2's (the attention's head count,
+``ssm_expand · d_model`` wide, B and C per head, neither extra), computed
+as before.
+
 Mamba2 keeps the reference's roundings: the prefill conv is a bfloat16
 product and three bfloat16 adds in tap order (the reference's Python
 ``sum``), the decode conv float32 products summed and rounded once (its
@@ -316,16 +323,16 @@ def _softplus(x):
 def init_mamba2(gen: torch.Generator, cfg: ModelConfig, device=None):
     """w_in, conv (normal × 0.1 in the model's dtype), then w_out from
     ``gen``; A_log and dt_bias float32 zeros (A = −exp(A_log) = −1), D
-    float32 ones."""
+    float32 ones; where the config has them, a zero conv bias ``b_conv``
+    and the gated norm's zero ``norm`` scale, drawing nothing."""
     d = cfg.d_model
-    di = cfg.ssm_expand * d
-    N, H = cfg.ssm_state, cfg.n_heads
+    di, N, H, G = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_groups
     dtype, dev = dt(cfg), device or gen.device
-    # joint projection: [x (di), z (di), B (H·N), C (H·N), dt (H)]
-    w_in = init_dense(gen, d, 2 * di + 2 * H * N + H, dtype, dev)
-    conv = torch.randn((cfg.ssm_conv, di + 2 * H * N), generator=gen, dtype=torch.float32,
+    # joint projection: [x (di), z (di), B (G·N), C (G·N), dt (H)]
+    w_in = init_dense(gen, d, 2 * di + 2 * G * N + H, dtype, dev)
+    conv = torch.randn((cfg.ssm_conv, di + 2 * G * N), generator=gen, dtype=torch.float32,
                        device=dev)
-    return {
+    p = {
         "w_in": w_in,
         "conv": (conv * 0.1).to(dtype),
         "A_log": torch.zeros((H,), dtype=torch.float32, device=dev),
@@ -333,6 +340,11 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig, device=None):
         "dt_bias": torch.zeros((H,), dtype=torch.float32, device=dev),
         "w_out": init_dense(gen, di, d, dtype, dev),
     }
+    if cfg.ssm_conv_bias:
+        p["b_conv"] = torch.zeros((di + 2 * G * N,), dtype=dtype, device=dev)
+    if cfg.ssm_gated_norm:
+        p["norm"] = {"scale": torch.zeros((di,), dtype=dtype, device=dev)}
+    return p
 
 
 def mamba2_logical_axes(cfg: ModelConfig):
@@ -348,9 +360,8 @@ def mamba2_logical_axes(cfg: ModelConfig):
 
 def _mamba2_split(cfg: ModelConfig, proj):
     """(x, z, B, C, dt) of the joint input projection, along its last axis."""
-    di = cfg.ssm_expand * cfg.d_model
-    HN = cfg.ssm_state * cfg.n_heads
-    return torch.split(proj, [di, di, HN, HN, cfg.n_heads], dim=-1)
+    di, GN = cfg.ssm_inner, cfg.ssm_state * cfg.ssm_groups
+    return torch.split(proj, [di, di, GN, GN, cfg.ssm_heads], dim=-1)
 
 
 def causal_conv(xbc_pad, conv_w, S: int):
@@ -360,31 +371,48 @@ def causal_conv(xbc_pad, conv_w, S: int):
     return sum(xbc_pad[:, i:i + S] * conv_w[i] for i in range(conv_w.shape[0]))
 
 
-def decode_conv(window, conv_w):
+def decode_conv(window, conv_w, bias=None):
     """The decode step's conv over a (B, K, dconv) window, as the reference's
     ``einsum("bkc,kc->bc")`` computes it: float32 products summed over the
-    taps, rounded once to the inputs' dtype."""
-    return (window.to(torch.float32) * conv_w.to(torch.float32)).sum(dim=1).to(window.dtype)
+    taps (and the bias, where one is given), rounded once to the inputs'
+    dtype."""
+    out = (window.to(torch.float32) * conv_w.to(torch.float32)).sum(dim=1)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out.to(window.dtype)
+
+
+def _per_head(t, cfg: ModelConfig, lead: tuple[int, ...]):
+    """B or C of (*lead, G·N) → (*lead, H, N): head i reads group
+    i // (H / G)."""
+    H, G = cfg.ssm_heads, cfg.ssm_groups
+    t = t.reshape(*lead, G, cfg.ssm_state)
+    return t if G == H else t.repeat_interleave(H // G, dim=-2)
 
 
 def _mamba2_heads(params, cfg: ModelConfig, xbc_conv, dt_, lead: tuple[int, ...], dtype):
     """silu of the conv output → (x as v: (*lead, H, P), B, C: (*lead, H, N),
     log decay and dt: (*lead, H), float32)."""
-    di = cfg.ssm_expand * cfg.d_model
-    N, H = cfg.ssm_state, cfg.n_heads
+    di, GN = cfg.ssm_inner, cfg.ssm_state * cfg.ssm_groups
     xbc_conv = _silu_f32(xbc_conv).to(dtype)
-    x_c, B_c, C_c = torch.split(xbc_conv, [di, H * N, H * N], dim=-1)
+    x_c, B_c, C_c = torch.split(xbc_conv, [di, GN, GN], dim=-1)
     dt_v = _softplus(dt_.to(torch.float32) + params["dt_bias"])
     log_a = dt_v * -torch.exp(params["A_log"])  # ≤ 0
-    return (x_c.reshape(*lead, H, di // H), B_c.reshape(*lead, H, N),
-            C_c.reshape(*lead, H, N), log_a, dt_v)
+    return (x_c.reshape(*lead, cfg.ssm_heads, cfg.ssm_head_dim), _per_head(B_c, cfg, lead),
+            _per_head(C_c, cfg, lead), log_a, dt_v)
 
 
-def _mamba2_out(params, y, v, z, dtype):
-    """(y + v·D) · silu(z), float32, cast once to ``dtype``, flattened over
-    the heads."""
+def _mamba2_out(params, cfg: ModelConfig, y, v, z, dtype):
+    """(y + v·D) · silu(z), float32, flattened over the heads, with the
+    gated norm where the config has it (RMSNorm over each of G groups of
+    channels, times 1 + scale), cast once to ``dtype``."""
     y = y + v.to(torch.float32) * params["D"][:, None]
-    return (y.flatten(-2) * _silu_f32(z)).to(dtype)
+    g = y.flatten(-2) * _silu_f32(z)
+    if cfg.ssm_gated_norm:
+        gs = g.unflatten(-1, (cfg.ssm_groups, -1))
+        gs = gs * torch.rsqrt(torch.mean(gs * gs, dim=-1, keepdim=True) + cfg.norm_eps)
+        g = gs.flatten(-2) * (1.0 + params["norm"]["scale"].to(torch.float32))
+    return g.to(dtype)
 
 
 def mamba2_block(params, cfg: ModelConfig, x, state=None):
@@ -400,13 +428,15 @@ def mamba2_block(params, cfg: ModelConfig, x, state=None):
         xbc_pad = torch.cat([state[0], xbc], dim=1)
     else:
         xbc_pad = F.pad(xbc, (0, 0, K - 1, 0))
-    v, B_c, C_c, log_a, dt_v = _mamba2_heads(
-        params, cfg, causal_conv(xbc_pad, params["conv"], S), dt_, (B, S), x.dtype)
+    xbc_conv = causal_conv(xbc_pad, params["conv"], S)
+    if cfg.ssm_conv_bias:
+        xbc_conv = xbc_conv + params["b_conv"]
+    v, B_c, C_c, log_a, dt_v = _mamba2_heads(params, cfg, xbc_conv, dt_, (B, S), x.dtype)
     y, (S_new, n_new) = chunk_linear_recurrence(
         C_c, B_c, v, log_a, dt_v, chunk=cfg.ssm_chunk,
         init_state=None if state is None else (state[1], state[2]), normalize=False,
         unroll=cfg.scan_unroll)
-    y = _mamba2_out(params, y, v, z, x.dtype)
+    y = _mamba2_out(params, cfg, y, v, z, x.dtype)
     new_conv_buf = xbc[:, S - (K - 1):] if S >= K - 1 else None
     return y @ params["w_out"], (new_conv_buf, S_new, n_new)
 
@@ -425,18 +455,18 @@ def mamba2_decode_step(params, cfg: ModelConfig, x, state):
     x_in, z, Bv, Cv, dt_ = _mamba2_split(cfg, (x @ params["w_in"])[:, 0])
     xbc = torch.cat([x_in, Bv, Cv], dim=-1)[:, None]  # (B, 1, dconv)
     window = torch.cat([conv_buf, xbc], dim=1)  # (B, K, dconv)
-    v, B_c, C_c, log_a, dt_v = _mamba2_heads(params, cfg, decode_conv(window, params["conv"]),
-                                             dt_, (B,), x.dtype)
+    conv = decode_conv(window, params["conv"], params["b_conv"] if cfg.ssm_conv_bias else None)
+    v, B_c, C_c, log_a, dt_v = _mamba2_heads(params, cfg, conv, dt_, (B,), x.dtype)
     y, S_state, n_state = linear_recurrence_step(C_c, B_c, v, log_a, dt_v, S_state, n_state,
                                                  normalize=False)
-    y = _mamba2_out(params, y, v, z, x.dtype)
+    y = _mamba2_out(params, cfg, y, v, z, x.dtype)
     return (y @ params["w_out"])[:, None], (window[:, 1:], S_state, n_state)
 
 
 def mamba2_state_init(cfg: ModelConfig, B: int, device=None):
     """(conv buffer in the model's dtype, S state, n state float32), zeros."""
-    di = cfg.ssm_expand * cfg.d_model
-    N, H = cfg.ssm_state, cfg.n_heads
-    return (torch.zeros((B, cfg.ssm_conv - 1, di + 2 * H * N), dtype=dt(cfg), device=device),
-            torch.zeros((B, H, N, di // H), dtype=torch.float32, device=device),
+    di, N, H = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads
+    return (torch.zeros((B, cfg.ssm_conv - 1, di + 2 * cfg.ssm_groups * N), dtype=dt(cfg),
+                        device=device),
+            torch.zeros((B, H, N, cfg.ssm_head_dim), dtype=torch.float32, device=device),
             torch.zeros((B, H, N), dtype=torch.float32, device=device))

@@ -538,6 +538,10 @@ class ServingEngine:
         self.captures = 0
         self.graph_replays = 0
         self.eager_steps = 0
+        #: for a cache with ``"counters"`` (the family's ``COUNTERS``), the
+        #: last :meth:`continue_greedy`'s (counts after the prefill, counts
+        #: after the decode steps), on the device
+        self.counters: tuple[torch.Tensor, torch.Tensor] | None = None
 
     # -- storage integration -------------------------------------------------
 
@@ -597,6 +601,7 @@ class ServingEngine:
         round's bucket where the engine uses graphs (see the class)."""
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         out = [tok[:, 0]]
+        prefill_counts = cache["counters"].clone() if "counters" in cache else None
         # steps - 1 decode steps: the reference's last decode is never read
         if self.uses_graphs and steps > 1:
             bucket = self.decode_bucket(tok, cache)
@@ -605,12 +610,15 @@ class ServingEngine:
                 bucket.step()
                 out.append(bucket.state["tok"][:, 0].clone())
             self.graph_replays += steps - 1
-            return torch.stack(out, dim=1)
-        for _ in range(steps - 1):
-            logits, cache = self.arch.decode_step(self.params, tok, cache)
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
-            out.append(tok[:, 0])
-        self.eager_steps += max(steps - 1, 0)
+            cache = bucket.state
+        else:
+            for _ in range(steps - 1):
+                logits, cache = self.arch.decode_step(self.params, tok, cache)
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+                out.append(tok[:, 0])
+            self.eager_steps += max(steps - 1, 0)
+        if prefill_counts is not None:
+            self.counters = (prefill_counts, cache["counters"])
         return torch.stack(out, dim=1)
 
     def decode_bucket(self, tok: torch.Tensor, cache) -> DecodeBucket:
@@ -663,7 +671,9 @@ class ClosedLoopResult:
     #: the round's phases in ms: "fetch" (proxy reads + row gather, host
     #: clock), "launch" (rows upload + admission + decode + prefill) and
     #: "generate" (the decode loop), the last two on the device's stream
-    #: clock on a card (CUDA events), the host clock on the CPU.
+    #: clock on a card (CUDA events), the host clock on the CPU; for a
+    #: family whose prefill takes marks, also "launch.<kind>", its prefill's
+    #: layers of each kind.
     phase_ms: dict[str, float] = dataclasses.field(default_factory=dict)
 
 
@@ -707,7 +717,11 @@ class ClosedLoopServer(_BucketStats):
     and each decode bucket the engine captures as a CUDA graph in a round.
     The ``serve.generate`` span is tagged with the round's decode steps
     replayed from a graph (``graph_replays``) and run eagerly
-    (``eager_steps``).
+    (``eager_steps``). For a family whose prefill takes marks
+    (``PREFILL_MARKS``), the ``serve.launch`` span is tagged with the
+    prefill's device ms by layer kind (``<kind>_ms``); for a cache with
+    counters, while tracing, each of the two spans with its phase's counts
+    (the family's ``COUNTERS``), read after the round's own sync.
     Batch varies within pow2 buckets; prefill and decode run at the padded
     batch and rows are cut to the served subset at the end.
 
@@ -861,8 +875,10 @@ class ClosedLoopServer(_BucketStats):
             # Bucket-padding rows decode to zeros; the clip keeps any stray
             # word (a high byte ≥ 128 is negative in int32) inside the table.
             toks = torch.clamp(toks, 0, arch.cfg.vocab - 1)
-            logits, cache = arch.prefill_tokens(self.engine.params, toks,
-                                                max_seq=self.engine.max_seq)
+            marks = [] if getattr(arch.module, "PREFILL_MARKS", False) else None
+            logits, cache = arch.prefill_tokens(
+                self.engine.params, toks, max_seq=self.engine.max_seq,
+                **({} if marks is None else {"marks": marks}))
             if collect:
                 if self._mbuf is None:
                     self._zero_bufs(device)
@@ -884,11 +900,24 @@ class ClosedLoopServer(_BucketStats):
         # so this read costs no stall.
         next_code = (int(n_nxt), int(k_nxt))
         phase_ms["launch"], phase_ms["generate"] = _ms(mark0, mark1), _ms(mark1, mark2)
+        if marks:
+            # the prefill's layers by kind, from its marks (all done by now)
+            kinds = {}
+            for (_, a), (kind, b) in zip(marks, marks[1:]):
+                kinds[kind] = kinds.get(kind, 0.0) + _ms(a, b)
+            phase_ms.update({f"launch.{kind}": ms for kind, ms in kinds.items()})
+            launch_span.tag(**{f"{kind}_ms": ms for kind, ms in kinds.items()})
         # The spans time the enqueue; their work's own time is known only now.
         launch_span.tag(device_ms=phase_ms["launch"])
         generate_span.tag(device_ms=phase_ms["generate"],
                           graph_replays=eng.graph_replays - before[1],
                           eager_steps=eng.eager_steps - before[2])
+        if eng.counters is not None and obs.tracing():
+            # the expert layers' counts, on the device until now
+            names = arch.module.COUNTERS
+            pre, post = (c.tolist() for c in eng.counters)
+            launch_span.tag(**dict(zip(names, pre)))
+            generate_span.tag(**{n: b - a for n, a, b in zip(names, pre, post)})
         if collect:
             # Where the round's budget went: "decode" is the whole launch
             # (upload + admission + K1 + prefill), "generate" the token loop.

@@ -49,10 +49,10 @@ def test_port_imports_no_jax_and_no_reference_package():
         ("taskq", ("", ".engine", ".policies", ".sweep"))) for mod in mods])
     assert lines["LM"] == str([f"repro_torch.{pkg}{mod}" for pkg, mods in (
         ("configs", ("", ".gemma2_2b", ".grok_1_314b", ".mistral_nemo_12b", ".mixtral_8x7b",
-                     ".pixtral_12b", ".qwen1_5_0_5b", ".whisper_base", ".xlstm_350m", ".yi_6b",
-                     ".zamba2_2_7b")),
-        ("models", ("", ".config", ".encdec", ".hybrid", ".layers", ".lm", ".moe", ".registry",
-                    ".sharding", ".ssm", ".xlstm")))
+                     ".nemotron3_nano_30b_a3b", ".pixtral_12b", ".qwen1_5_0_5b", ".whisper_base",
+                     ".xlstm_350m", ".yi_6b", ".zamba2_2_7b")),
+        ("models", ("", ".config", ".encdec", ".hybrid", ".layers", ".lm", ".moe",
+                    ".nemotron_h", ".registry", ".sharding", ".ssm", ".xlstm")))
         for mod in mods])
     assert lines["LAUNCH"] == str([f"repro_torch.launch{mod}" for mod in (
         "", ".dryrun", ".mesh", ".report", ".roofline", ".specs")])
