@@ -28,7 +28,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    product where cuBLASLt refuses ``_int_mm``'s shape, plus a mask) at the
    first two, and prints the kernel's time as a multiple of its bound and
    of the yardstick; the ``[build] K2 ptxas`` lines give its registers and
-   shared memory;
+   shared memory. The Mamba2 decode step's kernel (``mamba2_step.cu``,
+   built at its first call) against the plain step, S' and n' bit for bit,
+   at a Nemotron-3-Nano and a zamba2-2.7b layer's decode shape, timed per
+   call and replayed from a CUDA graph (as the decode step runs it) beside
+   its bound and the plain step;
 4. main path — the paper's §V-A deployment through the port's entry points:
    128 seeded 3 MiB objects written through the proxy (L = 16, (12, 6) strip
    code, feedback write policy), then 4 rounds of 32 raw reads decoded by
@@ -266,6 +270,22 @@ def back_to_back_ms(fn, calls: int = 10, reps: int = 20, warmup: int = 3) -> flo
     return float(np.median(times))
 
 
+def graph_ms(fn, calls: int = 10, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` as a captured decode step runs it:
+    ``calls`` calls captured in one CUDA graph (after a warm-up call), the
+    replay timed with CUDA events, divided by ``calls``, median of ``reps``.
+    No host work is in the window."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return median_ms(graph.replay, reps=reps, warmup=2) / calls
+
+
 #: K1 cases timed as well as checked: the main path's decode and encode at
 #: batch 32, and the write path's batched encode of 128 objects.
 K1_TIMED = ("decode", "encode", "encode128")
@@ -478,6 +498,93 @@ def check_k2(device) -> dict:
         raise AssertionError(f"K2 disagrees with its plain version: {rec['cases']}")
     for key in ("ms", "plain_ms", "library_ms", "library_call", "bound_ms", "bound_by"):
         rec[key] = rec["cases"]["encode"][key]
+    return rec
+
+
+#: The Mamba2 step kernel's timed shapes, (B, H, G, N, P) of one layer's
+#: decode step in the nemotron3-decode-batch and zamba2-decode-batch cells.
+MAMBA2_STEP_SHAPES = {"nemotron": (64, 64, 8, 128, 64), "zamba2": (32, 32, 32, 64, 160)}
+
+
+def y_err_over_bound(y, q, s_new) -> float:
+    """The largest |y − Σₙ q[n]·S'[n, p]| (the sum in float64, of the same
+    float32 S') over its bound N · 2⁻²⁴ · Σₙ |q[n]·S'[n, p]|, which any
+    order of a float32 sum of N terms keeps: at most 1 for a sound y.
+    q is by group, (B, G, N)."""
+    qh = q.repeat_interleave(s_new.shape[1] // q.shape[1], dim=1).double()
+    terms = qh[..., None] * s_new.double()  # (B, H, N, P)
+    bound = s_new.shape[2] * 2.0 ** -24 * terms.abs().sum(dim=2)
+    err = (y.double() - terms.sum(dim=2)).abs()
+    return float((err / bound.clamp(min=1e-30)).max())
+
+
+def check_mamba2_step(device) -> dict:
+    """The Mamba2 step kernel against its plain version at both decode
+    cells' shapes (bfloat16 q, k, v): S' and n' bit-equal, y = qᵀS' (the
+    kernel's own reduction) and the plain step's y each within
+    :func:`y_err_over_bound`'s bound of the float64 sum; its time per call
+    and replayed from a graph (:func:`graph_ms`), in place as the graph
+    path runs it, as a multiple of its bound (bytes at 3.35 TB/s); and the
+    plain step it replaced: B and C repeated per head,
+    ``linear_recurrence_step``, and the copy of S' and n' into the cache's
+    slot."""
+    import torch
+
+    from repro_torch.kernels.ssm.mamba2_step import mamba2_step, step_counts
+    from repro_torch.models import ssm
+    from repro_torch.obs.profile import HBM_BW
+
+    rec = {"cases": {}, "bit_equal": True, "y_err_over_bound": 0.0}
+    for label, (B, H, G, N, P) in MAMBA2_STEP_SHAPES.items():
+        g = torch.Generator(device=device).manual_seed(0)
+        proj = torch.randn((B, H * P + 2 * G * N), generator=g, device=device).bfloat16()
+        v, k, q = torch.split(proj, [H * P, G * N, G * N], dim=-1)
+        v, k, q = v.unflatten(-1, (H, P)), k.unflatten(-1, (G, N)), q.unflatten(-1, (G, N))
+        dt_ = torch.rand((B, H), generator=g, device=device) + 0.01
+        log_a = -dt_ * torch.rand((H,), generator=g, device=device)
+        state = torch.randn((B, H, N, P), generator=g, device=device)
+        n_state = torch.randn((B, H, N), generator=g, device=device)
+
+        slot_s, slot_n = torch.empty_like(state), torch.empty_like(n_state)
+
+        def plain():
+            qh, kh = (t.repeat_interleave(H // G, dim=1) for t in (q, k))
+            y, s, n = ssm.linear_recurrence_step(qh, kh, v, log_a, dt_, state, n_state)
+            slot_s.copy_(s)
+            slot_n.copy_(n)
+            return y, slot_s, slot_n
+
+        def kernel():
+            return mamba2_step(q, k, v, log_a, dt_, state, n_state, out=(state, n_state))
+
+        y, s_new, n_new = mamba2_step(q, k, v, log_a, dt_, state, n_state)
+        y0, s0, n0 = plain()
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(s_new, s0) and torch.equal(n_new, n0))
+        y_err, y0_err = y_err_over_bound(y, q, s_new), y_err_over_bound(y0, q, s0)
+        del y, s_new, n_new, y0, s0, n0
+        bound_ms = step_counts(B, H, G, N, P, 2)[1] / HBM_BW * 1e3
+        case = {"shape": [B, H, G, N, P], "bit_equal": equal, "y_err_over_bound": y_err,
+                "plain_y_err_over_bound": y0_err, "bound_ms": bound_ms,
+                "ms": median_ms(kernel), "graph_ms": graph_ms(kernel),
+                "plain_ms": median_ms(plain, reps=10), "plain_graph_ms": graph_ms(plain)}
+        print(f"[kernels] mamba2_step {label} (B, H, G, N, P) = {(B, H, G, N, P)}: "
+              f"bit_equal={equal}; y off the float64 sum by {y_err:.4f} of its bound (the "
+              f"plain step's {y0_err:.4f}); {case['ms']:.4f} ms per call, "
+              f"{case['graph_ms']:.4f} ms replayed from a graph; plain {case['plain_ms']:.4f} ms per call, "
+              f"{case['plain_graph_ms']:.4f} ms replayed; bound {bound_ms:.4f} ms (bytes); "
+              f"kernel = {case['ms'] / bound_ms:.2f}x bound per call, "
+              f"{case['graph_ms'] / bound_ms:.2f}x replayed", flush=True)
+        rec["cases"][label] = case
+        rec["bit_equal"] &= equal
+        rec["y_err_over_bound"] = max(rec["y_err_over_bound"], y_err)
+        del state, n_state, proj, slot_s, slot_n
+        torch.cuda.empty_cache()
+    if not rec["bit_equal"]:
+        raise AssertionError(f"mamba2_step's state disagrees with the plain step: {rec['cases']}")
+    if not rec["y_err_over_bound"] <= 1.0:
+        raise AssertionError(f"mamba2_step's y is off the float64 sum by more than its bound: "
+                             f"{rec['cases']}")
     return rec
 
 
@@ -1299,6 +1406,10 @@ def run_serve(device, *, smoke: bool = False, model: str = SERVE_MODEL,
             rec["profile"] = profile_serve_round(serve, engine, prompts, list(range(per_round)),
                                                  rec["rounds"][1:], steps, tag=tag)
         rec["k1_launches"] = gf2_rs_matmul_bytes.launches
+        # the engine's decode steps, and the hand-written kernels each captured step holds
+        rec["decode"] = {"captures": engine.captures, "graph_replays": engine.graph_replays,
+                         "eager_steps": engine.eager_steps,
+                         "kernel_launches": [b.kernel_launches for b in engine._buckets.values()]}
         if obs_rounds:
             rec["obs"] = serve_collected(
                 serve, ClosedLoopServer(engine, proxy, layout, step, prompt_len=prompt_len),
@@ -2363,6 +2474,29 @@ def run_moe_train(device, *, smoke: bool = False, seq: int = MOE_TRAIN_SEQ) -> d
     return rec
 
 
+def check_mamba2_launches(rec: dict, n_mamba: int) -> None:
+    """zamba2's ``[families]`` serve (``rec["serve"]["zamba2-2.7b"]``) on
+    the Mamba2 step kernel: each captured decode step holds ``n_mamba``
+    launches, and the serve launched it at least ``n_mamba`` times a decode
+    step it ran eagerly and a step of each capture (warm-up included)."""
+    from repro_torch.serve.engine import DecodeBucket
+
+    dec = rec["serve"]["zamba2-2.7b"]["decode"]
+    held = [k.get("ssm_step") for k in dec["kernel_launches"]]
+    need = n_mamba * (dec["eager_steps"] + dec["captures"] * (DecodeBucket.WARMUP + 1))
+    got = rec["mamba2_step_launches"]["[families] zamba2 serve"]
+    print(f"[families] zamba2 serve: Mamba2 step kernel launches {got} (need {n_mamba} layers "
+          f"x ({dec['eager_steps']} eager steps + {dec['captures']} captures x "
+          f"{DecodeBucket.WARMUP + 1} steps) = {need}); each captured step holds {held} "
+          f"({dec['graph_replays']} replays)", flush=True)
+    if not held or held != [n_mamba] * len(held):
+        raise AssertionError(f"zamba2's captured decode steps hold {held} Mamba2 step kernel "
+                             f"launches, want {n_mamba} each")
+    if got < need:
+        raise AssertionError(f"the Mamba2 step kernel launched {got} times on zamba2's serve, "
+                             f"want at least {need}")
+
+
 def run_families(device) -> dict:
     """The moe, vlm, encdec, ssm and hybrid families through the port's
     entry points at their published widths (see :data:`FAMILY_SERVES`):
@@ -2375,15 +2509,27 @@ def run_families(device) -> dict:
     whisper trained through the ``[train]`` protocol (``run_train``:
     checkpoints at (8, 4), a restart from 6 of 8 strips per leaf, the
     restarted final loss equal to the straight run's to rel 1e-4). Each
-    model is dropped and the allocator's cache emptied before the next."""
-    rec: dict = {"serve": {}, "wall_s": {}}
+    model is dropped and the allocator's cache emptied before the next.
+
+    The Mamba2 step kernel's launches are counted by path
+    (``rec["mamba2_step_launches"]``, keyed by each path's tag). zamba2's
+    serve must launch it once a Mamba2 layer in each decode step it ran
+    eagerly and in each capture (its warm-up steps and the captured one),
+    each captured step must hold one a Mamba2 layer, and its continuation
+    must launch one a layer."""
+    from repro_torch.kernels.ssm.mamba2_step import mamba2_step
+    from repro_torch.models import get
+
+    rec: dict = {"serve": {}, "wall_s": {}, "mamba2_step_launches": {}}
 
     def timed(key: str, tag: str, fn):
-        t0 = time.monotonic()
+        t0, launches = time.monotonic(), mamba2_step.launches
         rec[key] = out = fn()
         rec["wall_s"][tag] = time.monotonic() - t0
+        rec["mamba2_step_launches"][tag] = mamba2_step.launches - launches
         _empty_cache(device)
-        print(f"{tag}: {rec['wall_s'][tag]:.1f} s wall", flush=True)
+        print(f"{tag}: {rec['wall_s'][tag]:.1f} s wall, Mamba2 step kernel launched "
+              f"{rec['mamba2_step_launches'][tag]} times", flush=True)
         return out
 
     for model, layers, rows, prompt_len, max_seq in FAMILY_SERVES:
@@ -2403,8 +2549,13 @@ def run_families(device) -> dict:
                 device, model=model, layers=XLSTM_TRAIN_LAYERS, seq=XLSTM_TRAIN_SEQ,
                 batch=XLSTM_TRAIN_BATCH, tag="[families] xlstm train"))
         if model == "zamba2-2.7b":
+            n_mamba = layers or get(model).cfg.n_layers  # a Mamba2 block every layer
+            check_mamba2_launches(rec, n_mamba)
             timed("zamba2_continuation", "[families] zamba2 continuation",
                   lambda: check_continuation(device, model, layers))
+            if rec["mamba2_step_launches"]["[families] zamba2 continuation"] < n_mamba:
+                raise AssertionError(f"zamba2's continuation launched the Mamba2 step kernel "
+                                     f"fewer than {n_mamba} times, once a layer")
             timed("zamba2_train", "[families] zamba2 train", lambda: run_train(
                 device, model=model, layers=ZAMBA2_TRAIN_LAYERS, seq=ZAMBA2_TRAIN_SEQ,
                 batch=ZAMBA2_TRAIN_BATCH, tag="[families] zamba2 train"))
@@ -2425,6 +2576,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build
     from repro_torch.kernels.gf2mm import gf2mm
+    from repro_torch.kernels.ssm.mamba2_step import mamba2_step
 
     smi = nvidia_smi_line()
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; {smi}", flush=True)
@@ -2442,6 +2594,12 @@ def main() -> int:
 
     k1 = check_k1(device, np.random.default_rng(1))
     k2 = check_k2(device)
+    mamba2_step_rec = check_mamba2_step(device)
+    info = build.BUILD_INFO["mamba2_step"]
+    print(f"[build] mamba2_step nvcc {info['seconds']:.2f} s -> {info['path']}", flush=True)
+    for line in info["log"].splitlines():
+        if "ptxas" in line:
+            print(f"[build] mamba2_step {line.strip()}", flush=True)
 
     gf2mm.gf2_rs_matmul_bytes.launches = 0
     main_rec = run_main_path(device)
@@ -2489,9 +2647,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     gf2mm.gf2_rs_matmul_bytes.launches = 0
+    mamba2_step.launches = 0
     t0 = time.monotonic()
     families = run_families(device)
     families_launches = gf2mm.gf2_rs_matmul_bytes.launches
+    mamba2_launches = mamba2_step.launches
     print(f"[families] the phase: {time.monotonic() - t0:.1f} s wall", flush=True)
     trained = [(name, families[f"{name}_train"]) for name in ("xlstm", "zamba2", "whisper")]
     need = len(FAMILY_SERVES) * FAMILY_ROUNDS + sum(
@@ -2566,6 +2726,18 @@ def main() -> int:
         "library_ms": k2["library_ms"],
         "library_call": k2["library_call"],
         "cases": k2["cases"],
+    }, {
+        "name": "mamba2_step",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssm/csrc/mamba2_step.cu",
+        "replaces": None,
+        "launches": mamba2_launches,
+        "launches_by_path": families["mamba2_step_launches"],
+        "captured_step_launches": families["serve"]["zamba2-2.7b"]["decode"]["kernel_launches"],
+        "bit_equal": mamba2_step_rec["bit_equal"],
+        "y_err_over_bound": mamba2_step_rec["y_err_over_bound"],
+        "library_ms": None,
+        "cases": mamba2_step_rec["cases"],
     }]}
     print(nvidia_smi_line(), flush=True)
     print(json.dumps(kernels), flush=True)

@@ -48,6 +48,9 @@ from repro_torch.models.sharding import stacked
 #: host sync and no data-dependent shape, keeps ``pos`` on the device, and
 #: writes its new states into a stack the caller passes (``into``).
 CUDA_GRAPH_DECODE = True
+#: The hand-written kernels its decode step launches (counted by
+#: ``serve.engine.DecodeBucket``).
+DECODE_KERNELS = ssm.DECODE_KERNELS
 
 
 def _attn_flags(cfg: ModelConfig) -> tuple[list[bool], list[int], int]:
@@ -210,7 +213,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, into=None):
 
     The new states go into a fresh stack, or into ``into``, a stack of the
     cache's layout, which may be the cache's own: layer i's slot is read
-    only by layer i, before its new state is copied there."""
+    only by layer i, which writes its new state there (on a card the
+    recurrent state in place, element by element, in one kernel)."""
     if cache["mamba"][0] is None:
         raise ValueError(
             f"{cfg.name}: the cache has no Mamba2 conv buffer (its prefill had fewer than "
@@ -221,11 +225,10 @@ def decode_step(params, cfg: ModelConfig, token, cache, into=None):
     pos = cache["pos"]
     new = tuple(torch.empty_like(t) for t in cache["mamba"]) if into is None else into
     for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
-        out, st = ssm.mamba2_decode_step(p["mamba"], cfg, ly.rmsnorm(p["ln"], x),
-                                         tuple(t[i] for t in cache["mamba"]))
+        out, _ = ssm.mamba2_decode_step(p["mamba"], cfg, ly.rmsnorm(p["ln"], x),
+                                        tuple(t[i] for t in cache["mamba"]),
+                                        out=tuple(t[i] for t in new))
         x = x + out
-        for dst, src in zip(new, st):
-            dst[i].copy_(src)
         if flags[i]:
             j = slots[i]
             x = x + ly.decode_attention(

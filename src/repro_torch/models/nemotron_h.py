@@ -43,6 +43,9 @@ CUDA_GRAPH_DECODE = True
 PREFILL_MARKS = True
 #: The names of the cache's ``"counters"``, in order.
 COUNTERS = moe.COUNTERS
+#: The hand-written kernels its decode step launches (see
+#: :data:`repro_torch.models.hybrid.DECODE_KERNELS`).
+DECODE_KERNELS = ssm.DECODE_KERNELS
 #: layer kinds by their pattern character
 KINDS = {"M": "mamba", "E": "moe", "*": "attn"}
 
@@ -194,10 +197,9 @@ def decode_step(params, cfg: ModelConfig, token, cache, into=None):
         p = stacks[kind][j]
         h = _norm(p["ln"], cfg, x)
         if kind == "mamba":
-            out, st = ssm.mamba2_decode_step(p["mixer"], cfg, h,
-                                             tuple(t[j] for t in cache["mamba"]))
-            for dst, src in zip(new, st):
-                dst[j].copy_(src)
+            out, _ = ssm.mamba2_decode_step(p["mixer"], cfg, h,
+                                            tuple(t[j] for t in cache["mamba"]),
+                                            out=tuple(t[j] for t in new))
         elif kind == "moe":
             out = moe.routed_moe(p["moe"], cfg, h, cache["counters"])
         else:

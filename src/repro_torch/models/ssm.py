@@ -39,6 +39,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ssm.mamba2_step import mamba2_step
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dt, init_dense
 
@@ -132,6 +133,33 @@ def linear_recurrence_step(q, k, v, log_a, gate_i, state, n_state, *, normalize:
     if normalize:
         denom = torch.abs(torch.einsum("bhd,bhd->bh", qf, n_state))
         y = y / torch.clamp(denom, min=1.0)[..., None]
+    return y, state, n_state
+
+
+#: The hand-written kernels a Mamba2 decode step launches, by the name the
+#: serving engine counts their launches under (each counts its own in
+#: ``.launches``).
+DECODE_KERNELS = {"ssm_step": mamba2_step}
+
+
+def mamba2_recurrence_step(q, k, v, log_a, gate_i, state, n_state, out=None):
+    """Mamba2's exact single-step decode (no normalizer) with q and k (C and
+    B) by group: (B, G, N), head h reads group h // (H / G). On a CUDA
+    state the hand-written kernel
+    (:func:`~repro_torch.kernels.ssm.mamba2_step.mamba2_step`, one streaming
+    pass that may update the state in place); on any other device
+    :func:`linear_recurrence_step` on q and k repeated per head, which the
+    kernel's S' and n' equal bit for bit. ``out``, where given, is an
+    (S', n') pair of destinations, each the state's own tensor or apart
+    from it; the new state is written there and returned."""
+    if state.is_cuda:
+        return mamba2_step(q, k, v, log_a, gate_i, state, n_state, out=out)
+    rep = state.shape[1] // k.shape[1]
+    y, state, n_state = linear_recurrence_step(q.repeat_interleave(rep, dim=1),
+                                               k.repeat_interleave(rep, dim=1), v, log_a,
+                                               gate_i, state, n_state)
+    if out is not None:
+        state, n_state = out[0].copy_(state), out[1].copy_(n_state)
     return y, state, n_state
 
 
@@ -383,23 +411,24 @@ def decode_conv(window, conv_w, bias=None):
 
 
 def _per_head(t, cfg: ModelConfig, lead: tuple[int, ...]):
-    """B or C of (*lead, G·N) → (*lead, H, N): head i reads group
-    i // (H / G)."""
+    """B or C of (*lead, G·N) or (*lead, G, N) → (*lead, H, N): head i reads
+    group i // (H / G)."""
     H, G = cfg.ssm_heads, cfg.ssm_groups
     t = t.reshape(*lead, G, cfg.ssm_state)
     return t if G == H else t.repeat_interleave(H // G, dim=-2)
 
 
 def _mamba2_heads(params, cfg: ModelConfig, xbc_conv, dt_, lead: tuple[int, ...], dtype):
-    """silu of the conv output → (x as v: (*lead, H, P), B, C: (*lead, H, N),
-    log decay and dt: (*lead, H), float32)."""
+    """silu of the conv output → (x as v: (*lead, H, P), B, C by group:
+    (*lead, G, N), log decay and dt: (*lead, H), float32)."""
     di, GN = cfg.ssm_inner, cfg.ssm_state * cfg.ssm_groups
     xbc_conv = _silu_f32(xbc_conv).to(dtype)
     x_c, B_c, C_c = torch.split(xbc_conv, [di, GN, GN], dim=-1)
     dt_v = _softplus(dt_.to(torch.float32) + params["dt_bias"])
     log_a = dt_v * -torch.exp(params["A_log"])  # ≤ 0
-    return (x_c.reshape(*lead, cfg.ssm_heads, cfg.ssm_head_dim), _per_head(B_c, cfg, lead),
-            _per_head(C_c, cfg, lead), log_a, dt_v)
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    return (x_c.reshape(*lead, cfg.ssm_heads, cfg.ssm_head_dim), B_c.unflatten(-1, (G, N)),
+            C_c.unflatten(-1, (G, N)), log_a, dt_v)
 
 
 def _mamba2_out(params, cfg: ModelConfig, y, v, z, dtype):
@@ -433,7 +462,8 @@ def mamba2_block(params, cfg: ModelConfig, x, state=None):
         xbc_conv = xbc_conv + params["b_conv"]
     v, B_c, C_c, log_a, dt_v = _mamba2_heads(params, cfg, xbc_conv, dt_, (B, S), x.dtype)
     y, (S_new, n_new) = chunk_linear_recurrence(
-        C_c, B_c, v, log_a, dt_v, chunk=cfg.ssm_chunk,
+        _per_head(C_c, cfg, (B, S)), _per_head(B_c, cfg, (B, S)), v, log_a, dt_v,
+        chunk=cfg.ssm_chunk,
         init_state=None if state is None else (state[1], state[2]), normalize=False,
         unroll=cfg.scan_unroll)
     y = _mamba2_out(params, cfg, y, v, z, x.dtype)
@@ -441,11 +471,19 @@ def mamba2_block(params, cfg: ModelConfig, x, state=None):
     return y @ params["w_out"], (new_conv_buf, S_new, n_new)
 
 
-def mamba2_decode_step(params, cfg: ModelConfig, x, state):
+def mamba2_decode_step(params, cfg: ModelConfig, x, state, out=None):
     """x: (B, 1, d); state: (conv_buf, S_state, n). Returns ((B, 1, d), new
     state). Raises ``ValueError`` for a ``None`` conv buffer (a prefill of
     fewer than conv − 1 positions), where the reference fails in its
-    concatenate."""
+    concatenate.
+
+    The recurrence is :func:`mamba2_recurrence_step`: on a card one
+    hand-written kernel that streams the float32 state once, elsewhere
+    :func:`linear_recurrence_step`. ``out``, where given, is a (conv_buf,
+    S_state, n) of destinations of the state's shapes (a layer's slots of a
+    cache stack, say), each the state's own tensor or apart from it; the
+    new state is written there (S and n, on a card, by the kernel itself)
+    and returned."""
     B = x.shape[0]
     conv_buf, S_state, n_state = state
     if conv_buf is None:
@@ -457,10 +495,13 @@ def mamba2_decode_step(params, cfg: ModelConfig, x, state):
     window = torch.cat([conv_buf, xbc], dim=1)  # (B, K, dconv)
     conv = decode_conv(window, params["conv"], params["b_conv"] if cfg.ssm_conv_bias else None)
     v, B_c, C_c, log_a, dt_v = _mamba2_heads(params, cfg, conv, dt_, (B,), x.dtype)
-    y, S_state, n_state = linear_recurrence_step(C_c, B_c, v, log_a, dt_v, S_state, n_state,
-                                                 normalize=False)
+    y, S_state, n_state = mamba2_recurrence_step(C_c, B_c, v, log_a, dt_v, S_state, n_state,
+                                                 out=None if out is None else out[1:])
     y = _mamba2_out(params, cfg, y, v, z, x.dtype)
-    return (y @ params["w_out"])[:, None], (window[:, 1:], S_state, n_state)
+    conv_buf = window[:, 1:]
+    if out is not None:
+        conv_buf = out[0].copy_(conv_buf)
+    return (y @ params["w_out"])[:, None], (conv_buf, S_state, n_state)
 
 
 def mamba2_state_init(cfg: ModelConfig, B: int, device=None):

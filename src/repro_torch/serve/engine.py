@@ -467,6 +467,10 @@ class DecodeBucket:
         self.state = tree_map(torch.clone, {**cache, "tok": tok})
         self.graph: torch.cuda.CUDAGraph | None = None
         self.logits: torch.Tensor | None = None
+        #: launches of each of the family's hand-written decode kernels
+        #: (``DECODE_KERNELS``) the captured step holds, by name; empty
+        #: before :meth:`capture`
+        self.kernel_launches: dict[str, int] = {}
 
     @staticmethod
     def key(tok: torch.Tensor, cache) -> tuple:
@@ -505,6 +509,8 @@ class DecodeBucket:
                 greedy_step(self.arch, self.params, self.state)
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        kernels = getattr(self.arch.module, "DECODE_KERNELS", {})
+        before = {name: fn.launches for name, fn in kernels.items()}
         try:
             # thread_local: the proxy's threads may use the card meanwhile
             with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
@@ -513,6 +519,7 @@ class DecodeBucket:
             raise RuntimeError(f"{self.arch.name}: capturing the decode step at batch "
                                f"{self.state['tok'].shape[0]} failed") from e
         self.graph, self.logits = graph, logits
+        self.kernel_launches = {name: fn.launches - before[name] for name, fn in kernels.items()}
 
 
 class ServingEngine:
@@ -538,6 +545,9 @@ class ServingEngine:
         self.captures = 0
         self.graph_replays = 0
         self.eager_steps = 0
+        #: the bucket the last :meth:`continue_greedy` replayed, ``None``
+        #: where it decoded eagerly
+        self.last_bucket: DecodeBucket | None = None
         #: for a cache with ``"counters"`` (the family's ``COUNTERS``), the
         #: last :meth:`continue_greedy`'s (counts after the prefill, counts
         #: after the decode steps), on the device
@@ -602,6 +612,7 @@ class ServingEngine:
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         out = [tok[:, 0]]
         prefill_counts = cache["counters"].clone() if "counters" in cache else None
+        self.last_bucket = None
         # steps - 1 decode steps: the reference's last decode is never read
         if self.uses_graphs and steps > 1:
             bucket = self.decode_bucket(tok, cache)
@@ -610,6 +621,7 @@ class ServingEngine:
                 bucket.step()
                 out.append(bucket.state["tok"][:, 0].clone())
             self.graph_replays += steps - 1
+            self.last_bucket = bucket
             cache = bucket.state
         else:
             for _ in range(steps - 1):
@@ -717,11 +729,15 @@ class ClosedLoopServer(_BucketStats):
     and each decode bucket the engine captures as a CUDA graph in a round.
     The ``serve.generate`` span is tagged with the round's decode steps
     replayed from a graph (``graph_replays``) and run eagerly
-    (``eager_steps``). For a family whose prefill takes marks
-    (``PREFILL_MARKS``), the ``serve.launch`` span is tagged with the
-    prefill's device ms by layer kind (``<kind>_ms``); for a cache with
-    counters, while tracing, each of the two spans with its phase's counts
-    (the family's ``COUNTERS``), read after the round's own sync.
+    (``eager_steps``), and where the round replayed a graph, with the
+    launches of each hand-written kernel that graph holds
+    (``<name>_launches`` for the family's ``DECODE_KERNELS``:
+    ``ssm_step_launches``, one per Mamba2 layer). For a family whose
+    prefill takes marks (``PREFILL_MARKS``), the ``serve.launch`` span is
+    tagged with the prefill's device ms by layer kind (``<kind>_ms``); for
+    a cache with counters, while tracing, each of the two spans with its
+    phase's counts (the family's ``COUNTERS``), read after the round's own
+    sync.
     Batch varies within pow2 buckets; prefill and decode run at the padded
     batch and rows are cut to the served subset at the end.
 
@@ -912,6 +928,9 @@ class ClosedLoopServer(_BucketStats):
         generate_span.tag(device_ms=phase_ms["generate"],
                           graph_replays=eng.graph_replays - before[1],
                           eager_steps=eng.eager_steps - before[2])
+        if eng.last_bucket is not None:
+            generate_span.tag(**{f"{name}_launches": n
+                                 for name, n in eng.last_bucket.kernel_launches.items()})
         if eng.counters is not None and obs.tracing():
             # the expert layers' counts, on the device until now
             names = arch.module.COUNTERS

@@ -251,6 +251,9 @@ def test_replayed_decode_at_published_width(cuda):
                             .astype(np.int32)).to(cuda)
     _replay_equals_eager(engine, toks, 8)
     assert engine.captures == 1 and engine.graph_replays == 7
+    # the captured step holds one Mamba2 step kernel a Mamba2 layer
+    (bucket,) = engine._buckets.values()
+    assert bucket.kernel_launches == {"ssm_step": arch.cfg.n_layers} == {"ssm_step": 54}
 
 
 def test_the_closed_loop_counts_captures_and_replays_on_the_card(cuda):
@@ -285,6 +288,7 @@ def test_the_closed_loop_counts_captures_and_replays_on_the_card(cuda):
     assert server.traces == 2 and engine.captures == 1
     assert (engine.graph_replays, engine.eager_steps) == (6, 0)
     assert [(e["args"]["graph_replays"], e["args"]["eager_steps"]) for e in spans] == [(3, 0)] * 2
+    assert [e["args"]["ssm_step_launches"] for e in spans] == [arch.cfg.n_layers] * 2
     want = _eager_decode(arch, engine.params, *arch.prefill_tokens(
         engine.params, torch.from_numpy(np.concatenate([prompts, 0 * prompts[:1]])).to(cuda),
         max_seq=20), 4)[0]

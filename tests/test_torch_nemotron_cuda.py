@@ -53,6 +53,7 @@ def test_replayed_decode_equals_eager_at_published_widths(cuda):
 
     bucket = DecodeBucket(arch, params, tok, pristine)
     bucket.capture(torch.cuda.graph_pool_handle())
+    assert bucket.kernel_launches == {"ssm_step": 23}  # one Mamba2 step kernel a Mamba2 layer
     bucket.load(tok, pristine)
     replayed = [bucket.step().clone() for _ in range(steps)]
     for i, (a, b) in enumerate(zip(eager, replayed)):
