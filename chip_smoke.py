@@ -1275,6 +1275,7 @@ def run_serve(device, *, smoke: bool = False, model: str = SERVE_MODEL,
     from repro_torch.coding.layout import layout_for_file
     from repro_torch.core import PAPER_READ_3MB, PAPER_WRITE_3MB, FeedbackPolicy, TOFECPolicy
     from repro_torch.kernels.gf2mm.gf2mm import gf2_rs_matmul_bytes
+    from repro_torch.kernels.ssm.mamba2_step import mamba2_step
     from repro_torch.models import get
     from repro_torch.serve import ClosedLoopServer, FusedServingStep, ServePolicy, ServingEngine
     from repro_torch.storage import LatencyStore, MemoryStore, Proxy
@@ -1331,6 +1332,7 @@ def run_serve(device, *, smoke: bool = False, model: str = SERVE_MODEL,
             inside ``around``), checked."""
             keys = [f"lm/{i}" for i in ids]
             k1_before = gf2_rs_matmul_bytes.launches
+            decode_before = mamba2_step.launches, engine.captures, engine.eager_steps
             with around:
                 t0 = time.monotonic()
                 res = srv.serve_round(keys, steps=steps)
@@ -1356,7 +1358,10 @@ def run_serve(device, *, smoke: bool = False, model: str = SERVE_MODEL,
                                      "positions")
             ph = res.phase_ms
             rnd = {"round": r, "wall_ms": wall_ms, **{f"{k}_ms": v for k, v in ph.items()},
-                   "generate_direct_ms": ref_ms, "k1_launches": k1, "tokens": res.tokens,
+                   "generate_direct_ms": ref_ms, "k1_launches": k1,
+                   "mamba2_step_launches": mamba2_step.launches - decode_before[0],
+                   "captures": engine.captures - decode_before[1],
+                   "eager_steps": engine.eager_steps - decode_before[2], "tokens": res.tokens,
                    "storage_total_s": res.storage_total_s,
                    "prompt_tok_per_s": len(keys) * prompt_len / (ph["launch"] / 1e3),
                    "gen_tok_per_s": len(keys) * steps / (ph["generate"] / 1e3),
@@ -1406,10 +1411,12 @@ def run_serve(device, *, smoke: bool = False, model: str = SERVE_MODEL,
             rec["profile"] = profile_serve_round(serve, engine, prompts, list(range(per_round)),
                                                  rec["rounds"][1:], steps, tag=tag)
         rec["k1_launches"] = gf2_rs_matmul_bytes.launches
-        # the engine's decode steps, and the hand-written kernels each captured step holds
+        # the engine's decode steps, and the Mamba2 step kernel's launches in each round
+        # that captured a decode bucket (its warm-up steps and the captured one)
         rec["decode"] = {"captures": engine.captures, "graph_replays": engine.graph_replays,
                          "eager_steps": engine.eager_steps,
-                         "kernel_launches": [b.kernel_launches for b in engine._buckets.values()]}
+                         "capture_launches": [rnd["mamba2_step_launches"]
+                                              for rnd in rec["rounds"] if rnd["captures"]]}
         if obs_rounds:
             rec["obs"] = serve_collected(
                 serve, ClosedLoopServer(engine, proxy, layout, step, prompt_len=prompt_len),
@@ -2476,25 +2483,28 @@ def run_moe_train(device, *, smoke: bool = False, seq: int = MOE_TRAIN_SEQ) -> d
 
 def check_mamba2_launches(rec: dict, n_mamba: int) -> None:
     """zamba2's ``[families]`` serve (``rec["serve"]["zamba2-2.7b"]``) on
-    the Mamba2 step kernel: each captured decode step holds ``n_mamba``
-    launches, and the serve launched it at least ``n_mamba`` times a decode
-    step it ran eagerly and a step of each capture (warm-up included)."""
+    the Mamba2 step kernel (``mamba2_step.launches``, counted around each
+    round): some round captured a decode bucket, and each round launched it
+    ``n_mamba`` times for each decode step it ran eagerly and for each step
+    of each capture (the warm-up steps and the captured one), so every
+    captured step holds one launch a Mamba2 layer. The replays launch it
+    from their graphs, not from the host."""
     from repro_torch.serve.engine import DecodeBucket
 
-    dec = rec["serve"]["zamba2-2.7b"]["decode"]
-    held = [k.get("ssm_step") for k in dec["kernel_launches"]]
-    need = n_mamba * (dec["eager_steps"] + dec["captures"] * (DecodeBucket.WARMUP + 1))
-    got = rec["mamba2_step_launches"]["[families] zamba2 serve"]
-    print(f"[families] zamba2 serve: Mamba2 step kernel launches {got} (need {n_mamba} layers "
-          f"x ({dec['eager_steps']} eager steps + {dec['captures']} captures x "
-          f"{DecodeBucket.WARMUP + 1} steps) = {need}); each captured step holds {held} "
-          f"({dec['graph_replays']} replays)", flush=True)
-    if not held or held != [n_mamba] * len(held):
-        raise AssertionError(f"zamba2's captured decode steps hold {held} Mamba2 step kernel "
-                             f"launches, want {n_mamba} each")
-    if got < need:
-        raise AssertionError(f"the Mamba2 step kernel launched {got} times on zamba2's serve, "
-                             f"want at least {need}")
+    serve = rec["serve"]["zamba2-2.7b"]
+    dec = serve["decode"]
+    got = [r["mamba2_step_launches"] for r in serve["rounds"]]
+    need = [n_mamba * (r["eager_steps"] + r["captures"] * (DecodeBucket.WARMUP + 1))
+            for r in serve["rounds"]]
+    print(f"[families] zamba2 serve: Mamba2 step kernel launches by round {got} (need "
+          f"{n_mamba} layers x (eager steps + captures x {DecodeBucket.WARMUP + 1} steps) = "
+          f"{need}); {dec['captures']} captures, {dec['graph_replays']} replays", flush=True)
+    if not dec["capture_launches"]:
+        raise AssertionError("zamba2's serve captured no decode bucket")
+    if got != need:
+        raise AssertionError(f"the Mamba2 step kernel launched {got} times by round on "
+                             f"zamba2's serve, want {need}: a captured step lacks its "
+                             f"launches")
 
 
 def run_families(device) -> dict:
@@ -2514,9 +2524,9 @@ def run_families(device) -> dict:
     The Mamba2 step kernel's launches are counted by path
     (``rec["mamba2_step_launches"]``, keyed by each path's tag). zamba2's
     serve must launch it once a Mamba2 layer in each decode step it ran
-    eagerly and in each capture (its warm-up steps and the captured one),
-    each captured step must hold one a Mamba2 layer, and its continuation
-    must launch one a layer."""
+    eagerly and in each step of each capture (its warm-up steps and the
+    captured one), round by round (:func:`check_mamba2_launches`), and its
+    continuation must launch one a layer."""
     from repro_torch.kernels.ssm.mamba2_step import mamba2_step
     from repro_torch.models import get
 
@@ -2733,7 +2743,7 @@ def main() -> int:
         "replaces": None,
         "launches": mamba2_launches,
         "launches_by_path": families["mamba2_step_launches"],
-        "captured_step_launches": families["serve"]["zamba2-2.7b"]["decode"]["kernel_launches"],
+        "capture_launches": families["serve"]["zamba2-2.7b"]["decode"]["capture_launches"],
         "bit_equal": mamba2_step_rec["bit_equal"],
         "y_err_over_bound": mamba2_step_rec["y_err_over_bound"],
         "library_ms": None,

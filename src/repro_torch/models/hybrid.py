@@ -15,10 +15,10 @@ activations are not); the shared attention uses the sliding window
 ``local_window`` and its cache holds min(max_seq, local_window) positions.
 The serving cache is ``{"mamba": (conv_buf, S, n), "k", "v", "slot_pos",
 "pos"}``, the Mamba2 states stacked along the layers. Prefill fills a
-preallocated cache layer by layer; the decode step writes each site's K/V
-in place (as :func:`repro_torch.models.layers.decode_attention` does) and
-returns new Mamba2 states, as the reference's, or writes them into a stack
-the caller gives (:data:`CUDA_GRAPH_DECODE`). Serving runs under
+preallocated cache layer by layer; the decode step advances the cache it
+is given in place, each Mamba2 layer's states in their slot and each site's
+K/V (as :func:`repro_torch.models.layers.decode_attention` does), where the
+reference returns new states (:data:`CUDA_GRAPH_DECODE`). Serving runs under
 ``torch.inference_mode()``. :func:`logical_axes` and
 :func:`cache_logical_axes` give the sharding plan's logical axes
 (:mod:`repro_torch.models.sharding`).
@@ -27,12 +27,13 @@ the caller gives (:data:`CUDA_GRAPH_DECODE`). Serving runs under
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.models import layers as ly
-from repro_torch.models import ssm
+from repro_torch.models import moe, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import (
     _init_layers,
@@ -46,11 +47,8 @@ from repro_torch.models.sharding import stacked
 
 #: The decode step may be captured as a CUDA graph and replayed: it makes no
 #: host sync and no data-dependent shape, keeps ``pos`` on the device, and
-#: writes its new states into a stack the caller passes (``into``).
+#: writes its new states into the cache's own buffers.
 CUDA_GRAPH_DECODE = True
-#: The hand-written kernels its decode step launches (counted by
-#: ``serve.engine.DecodeBucket``).
-DECODE_KERNELS = ssm.DECODE_KERNELS
 
 
 def _attn_flags(cfg: ModelConfig) -> tuple[list[bool], list[int], int]:
@@ -137,6 +135,43 @@ def train_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
 
 
 # -- serving ------------------------------------------------------------------
+#
+# Both Mamba2 hybrids (this family and :mod:`~repro_torch.models.nemotron_h`)
+# serve through one prefill walk and one decode walk over a layer plan: the
+# model's steps in order, each a :class:`Step`. Every step is a pre-norm
+# residual block, x += block(RMSNorm(x)).
+
+
+class Step(NamedTuple):
+    """One step of a layer plan."""
+
+    kind: str  # "mamba", "attn", "mlp" or "moe"
+    ln: dict  # its RMSNorm's parameters
+    block: dict  # the block's parameters
+    slot: int | None  # its slot in the cache: a Mamba2 layer's states, an attention's KV
+    window: int | None  # an attention's sliding window (None: the whole prefix)
+
+
+def _plan(params, cfg: ModelConfig) -> list[Step]:
+    """Each backbone layer's Mamba2 step, and after a layer where the shared
+    block applies, its attention (over the window, at the site's KV slot)
+    and its MLP."""
+    flags, slots, _ = _attn_flags(cfg)
+    shared = params["shared"]
+    plan = []
+    for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        plan.append(Step("mamba", p["ln"], p["mamba"], i, None))
+        if flags[i]:
+            plan += [Step("attn", shared["ln1"], shared["attn"], slots[i], cfg.local_window),
+                     Step("mlp", shared["ln2"], shared["mlp"], None, None)]
+    return plan
+
+
+def mamba2_stack(cfg: ModelConfig, n: int, B: int, device) -> tuple:
+    """Zero Mamba2 states (conv_buf, S, n) of ``n`` layers, stacked along a
+    leading axis: the cache's ``"mamba"``."""
+    state = ssm.mamba2_state_init(cfg, B, device="meta")
+    return tuple(torch.zeros((n, *t.shape), dtype=t.dtype, device=device) for t in state)
 
 
 def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
@@ -146,10 +181,8 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
     Smax = min(max_seq, cfg.local_window)
     Hkv, hd = cfg.n_kv_heads, cfg.hd
     dev = resolve_device(device)
-    state = ssm.mamba2_state_init(cfg, B, device="meta")
     return {
-        "mamba": tuple(torch.zeros((cfg.n_layers, *t.shape), dtype=t.dtype, device=dev)
-                       for t in state),
+        "mamba": mamba2_stack(cfg, cfg.n_layers, B, dev),
         "k": torch.zeros((n_sites, B, Smax, Hkv, hd), dtype=ly.dt(cfg), device=dev),
         "v": torch.zeros((n_sites, B, Smax, Hkv, hd), dtype=ly.dt(cfg), device=dev),
         "slot_pos": torch.full((n_sites, Smax), ly.EMPTY_POS, dtype=torch.int32, device=dev),
@@ -169,73 +202,83 @@ def cache_logical_axes(cfg: ModelConfig, B: int):
     }
 
 
-@torch.inference_mode()
-def prefill(params, cfg: ModelConfig, batch, max_seq: int | None = None):
-    """Run the prompt through every layer from empty states: (last-token
-    logits, primed cache). A prompt shorter than ssm_conv − 1 leaves the
-    cache's conv buffer ``None``, as the reference's, and a decode step
-    from it raises."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    cache = init_cache(cfg, B, max_seq or S, device=tokens.device)
+def prefill_walk(params, cfg: ModelConfig, plan: list[Step], tokens, cache, marks):
+    """Run the prompt through ``plan`` from the empty ``cache`` (the
+    family's ``init_cache``), filling it: (last-token logits, cache). A
+    prompt shorter than ssm_conv − 1 leaves the cache's conv buffer
+    ``None``, as the reference's, and a decode step from it raises. With
+    ``marks`` (a list), appends ``("start", mark)`` and then ``(kind,
+    mark)`` after each step (:func:`repro_torch.obs.device_mark`)."""
     x = ly.embed(params["embedding"], cfg, tokens)
-    shared = params["shared"]
-    flags, slots, _ = _attn_flags(cfg)
-    conv_buf = cache["mamba"][0]
-    for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
-        out, st = ssm.mamba2_block(p["mamba"], cfg, ly.rmsnorm(p["ln"], x))
+    if marks is not None:
+        marks.append(("start", obs.device_mark(x.device)))
+    for kind, ln, p, j, window in plan:
+        h = ly.rmsnorm(ln, x, eps=cfg.norm_eps)
+        if kind == "mamba":
+            out, st = ssm.mamba2_block(p, cfg, h)
+            for dst, src in zip(cache["mamba"], st):
+                if src is not None:
+                    dst[j].copy_(src)
+        elif kind == "attn":
+            out, k, v = ly.attention(p, cfg, h, window=window)
+            ly.fill_cache_from_prefill(k, v, cache["k"][j], cache["v"][j], cache["slot_pos"][j])
+        elif kind == "mlp":
+            out = ly.mlp(p, cfg, h)
+        else:
+            out = moe.routed_moe(p, cfg, h, cache["counters"])
         x = x + out
-        for dst, src in zip(cache["mamba"], st):
-            if src is not None:
-                dst[i].copy_(src)
-        if st[0] is None:
-            conv_buf = None
-        if flags[i]:
-            j = slots[i]
-            attn, k, v = ly.attention(shared["attn"], cfg, ly.rmsnorm(shared["ln1"], x),
-                                      window=cfg.local_window)
-            x = x + attn
-            ly.fill_cache_from_prefill(k, v, cache["k"][j], cache["v"][j],
-                                       cache["slot_pos"][j])
-            x = x + ly.mlp(shared["mlp"], cfg, ly.rmsnorm(shared["ln2"], x))
-    x = ly.rmsnorm(params["ln_f"], x)
-    last = ly.logits(params["embedding"], cfg, x[:, -1:])
-    cache["mamba"] = (conv_buf, *cache["mamba"][1:])
+        if marks is not None:
+            marks.append((kind, obs.device_mark(x.device)))
+    x = ly.rmsnorm(params["ln_f"], x, eps=cfg.norm_eps)
+    S = tokens.shape[1]
+    if S < cfg.ssm_conv - 1:
+        cache["mamba"] = (None, *cache["mamba"][1:])
     cache["pos"] = torch.full((), S, dtype=torch.int32, device=x.device)
-    return last, cache
+    return ly.logits(params["embedding"], cfg, x[:, -1:]), cache
 
 
-@torch.inference_mode()
-def decode_step(params, cfg: ModelConfig, token, cache, into=None):
-    """token: (B, 1) int32 → (logits (B, 1, V) float32, cache): new Mamba2
-    states, each site's k, v and slot_pos updated in place, ``pos``
-    advanced (on the device).
-
-    The new states go into a fresh stack, or into ``into``, a stack of the
-    cache's layout, which may be the cache's own: layer i's slot is read
-    only by layer i, which writes its new state there (on a card the
-    recurrent state in place, element by element, in one kernel)."""
+def decode_walk(params, cfg: ModelConfig, plan: list[Step], token, cache):
+    """token: (B, 1) int32 → (logits (B, 1, V) float32, cache), advancing
+    ``cache`` in place: each Mamba2 layer's (conv_buf, S, n) written into
+    its own slot (on a card the recurrent state element by element, in one
+    kernel), each attention's k, v and slot_pos, the counters added to;
+    only ``pos`` is new, advanced on the device. No host sync and no
+    data-dependent shape, so it may be captured as a CUDA graph."""
     if cache["mamba"][0] is None:
         raise ValueError(
             f"{cfg.name}: the cache has no Mamba2 conv buffer (its prefill had fewer than "
             f"ssm_conv - 1 = {cfg.ssm_conv - 1} tokens), so no decode step can follow it")
     x = ly.embed(params["embedding"], cfg, token)
-    shared = params["shared"]
-    flags, slots, _ = _attn_flags(cfg)
     pos = cache["pos"]
-    new = tuple(torch.empty_like(t) for t in cache["mamba"]) if into is None else into
-    for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
-        out, _ = ssm.mamba2_decode_step(p["mamba"], cfg, ly.rmsnorm(p["ln"], x),
-                                        tuple(t[i] for t in cache["mamba"]),
-                                        out=tuple(t[i] for t in new))
+    for kind, ln, p, j, window in plan:
+        h = ly.rmsnorm(ln, x, eps=cfg.norm_eps)
+        if kind == "mamba":
+            slots = tuple(t[j] for t in cache["mamba"])
+            out, _ = ssm.mamba2_decode_step(p, cfg, h, slots, out=slots)
+        elif kind == "attn":
+            out = ly.decode_attention(p, cfg, h, cache["k"][j], cache["v"][j],
+                                      cache["slot_pos"][j], pos, window=window)
+        elif kind == "mlp":
+            out = ly.mlp(p, cfg, h)
+        else:
+            out = moe.routed_moe(p, cfg, h, cache["counters"])
         x = x + out
-        if flags[i]:
-            j = slots[i]
-            x = x + ly.decode_attention(
-                shared["attn"], cfg, ly.rmsnorm(shared["ln1"], x), cache["k"][j],
-                cache["v"][j], cache["slot_pos"][j], pos, window=cfg.local_window)
-            x = x + ly.mlp(shared["mlp"], cfg, ly.rmsnorm(shared["ln2"], x))
-    x = ly.rmsnorm(params["ln_f"], x)
-    lg = ly.logits(params["embedding"], cfg, x)
-    return lg, {"mamba": new, "k": cache["k"], "v": cache["v"],
-                "slot_pos": cache["slot_pos"], "pos": pos + 1}
+    x = ly.rmsnorm(params["ln_f"], x, eps=cfg.norm_eps)
+    return ly.logits(params["embedding"], cfg, x), {**cache, "pos": pos + 1}
+
+
+@torch.inference_mode()
+def prefill(params, cfg: ModelConfig, batch, max_seq: int | None = None):
+    """Run the prompt through every layer from empty states: (last-token
+    logits, primed cache); see :func:`prefill_walk`."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    cache = init_cache(cfg, B, max_seq or S, device=tokens.device)
+    return prefill_walk(params, cfg, _plan(params, cfg), tokens, cache, None)
+
+
+@torch.inference_mode()
+def decode_step(params, cfg: ModelConfig, token, cache):
+    """One decode step, advancing ``cache`` in place; see
+    :func:`decode_walk`."""
+    return decode_walk(params, cfg, _plan(params, cfg), token, cache)

@@ -51,8 +51,11 @@ FAMILIES = ("dense", "moe", "vlm")
 
 def _require_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        module = {"encdec": "encdec", "ssm": "xlstm", "hybrid": "hybrid"}.get(cfg.family)
-        where = f"repro_torch.models.{module}" if module else "no module of the port"
+        # imported here: the registry imports this module
+        from repro_torch.models.registry import _FAMILY_MODULES
+
+        module = _FAMILY_MODULES.get(cfg.family)
+        where = module.__name__ if module else "no module of the port"
         raise NotImplementedError(
             f"{cfg.name}: this module runs the {', '.join(FAMILIES)} families, not "
             f"{cfg.family!r}, which {where} runs")

@@ -16,23 +16,23 @@ by side: ``{"mamba": (conv_buf, S, n)`` stacked over the Mamba2 layers,
 ``"k", "v", "slot_pos"`` over the attention layers only (``max_seq``
 positions each), ``"pos"``, and ``"counters"``, an int64 tensor of
 :data:`COUNTERS` that the expert layers add to on the device in prefill and
-in every decode step}. The decode step meets :mod:`~repro_torch.models.
-hybrid`'s capture contract (:data:`CUDA_GRAPH_DECODE`). Prefill takes
-``marks``, a list to which it appends a point on the device's stream after
-each layer (:data:`PREFILL_MARKS`), so a caller can read each kind's device
-time once the work is done, with no sync of its own. Serving only: the
-family has no training loss and no sharding plan.
+in every decode step}. The family serves through :mod:`~repro_torch.models.
+hybrid`'s prefill and decode walks over its own layer plan, so its decode
+step advances the cache in place and may be captured
+(:data:`CUDA_GRAPH_DECODE`). Prefill takes ``marks``, a list to which it
+appends a point on the device's stream after each layer
+(:data:`PREFILL_MARKS`), so a caller can read each kind's device time once
+the work is done, with no sync of its own. Serving only: the family has no
+training loss and no sharding plan.
 """
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models import hybrid, moe, ssm
 from repro_torch.models import layers as ly
-from repro_torch.models import moe, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import _init_layers, _unstack, init_generator
 
@@ -43,9 +43,6 @@ CUDA_GRAPH_DECODE = True
 PREFILL_MARKS = True
 #: The names of the cache's ``"counters"``, in order.
 COUNTERS = moe.COUNTERS
-#: The hand-written kernels its decode step launches (see
-#: :data:`repro_torch.models.hybrid.DECODE_KERNELS`).
-DECODE_KERNELS = ssm.DECODE_KERNELS
 #: layer kinds by their pattern character
 KINDS = {"M": "mamba", "E": "moe", "*": "attn"}
 
@@ -67,10 +64,6 @@ def layer_kinds(cfg: ModelConfig) -> list[tuple[str, int]]:
 
 def _count(cfg: ModelConfig, kind: str) -> int:
     return sum(k == kind for k, _ in layer_kinds(cfg))
-
-
-def _norm(p, cfg: ModelConfig, x):
-    return ly.rmsnorm(p, x, eps=cfg.norm_eps)
 
 
 #: each kind's block beside its norm: (its key in the block, its init)
@@ -111,11 +104,9 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
     ``max_seq`` positions for every attention layer, zero counters."""
     n_attn = _count(cfg, "attn")
     dev = resolve_device(device)
-    state = ssm.mamba2_state_init(cfg, B, device="meta")
     kv = (n_attn, B, max_seq, cfg.n_kv_heads, cfg.hd)
     return {
-        "mamba": tuple(torch.zeros((_count(cfg, "mamba"), *t.shape), dtype=t.dtype, device=dev)
-                       for t in state),
+        "mamba": hybrid.mamba2_stack(cfg, _count(cfg, "mamba"), B, dev),
         "k": torch.zeros(kv, dtype=ly.dt(cfg), device=dev),
         "v": torch.zeros(kv, dtype=ly.dt(cfg), device=dev),
         "slot_pos": torch.full((n_attn, max_seq), ly.EMPTY_POS, dtype=torch.int32, device=dev),
@@ -124,89 +115,32 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
     }
 
 
-def _mark(device: torch.device):
-    """A point on the device's stream (a recorded CUDA event), or the host
-    clock on the CPU."""
-    if device.type == "cuda":
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-    return time.perf_counter()
-
-
-def _stacks(params, cfg: ModelConfig) -> dict:
-    return {kind: _unstack(params[kind], _count(cfg, kind)) for kind in KINDS.values()}
+def _plan(params, cfg: ModelConfig) -> list[hybrid.Step]:
+    """Each layer's step in the published order: a Mamba2 layer's at its
+    slot of the Mamba2 states, an expert layer's, an attention layer's at
+    its KV slot over the whole prefix."""
+    stacks = {kind: _unstack(params[kind], _count(cfg, kind)) for kind in KINDS.values()}
+    plan = []
+    for kind, j in layer_kinds(cfg):
+        p = stacks[kind][j]
+        plan.append(hybrid.Step(kind, p["ln"], p[_BODIES[kind][0]],
+                                None if kind == "moe" else j, None))
+    return plan
 
 
 @torch.inference_mode()
 def prefill(params, cfg: ModelConfig, batch, max_seq: int | None = None, marks=None):
     """Run the prompt through every layer from empty states: (last-token
-    logits, primed cache). A prompt shorter than ssm_conv − 1 leaves the
-    cache's conv buffer ``None`` and a decode step from it raises, as in
-    :mod:`~repro_torch.models.hybrid`. With ``marks`` (a list), appends
-    ``("start", mark)`` and then ``(kind, mark)`` after each layer."""
+    logits, primed cache); see :func:`repro_torch.models.hybrid.prefill_walk`,
+    which appends to ``marks`` (a list) after each layer."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     cache = init_cache(cfg, B, max_seq or S, device=tokens.device)
-    x = ly.embed(params["embedding"], cfg, tokens)
-    stacks = _stacks(params, cfg)
-    conv_buf = cache["mamba"][0]
-    if marks is not None:
-        marks.append(("start", _mark(x.device)))
-    for kind, j in layer_kinds(cfg):
-        p = stacks[kind][j]
-        h = _norm(p["ln"], cfg, x)
-        if kind == "mamba":
-            out, st = ssm.mamba2_block(p["mixer"], cfg, h)
-            for dst, src in zip(cache["mamba"], st):
-                if src is not None:
-                    dst[j].copy_(src)
-            if st[0] is None:
-                conv_buf = None
-        elif kind == "moe":
-            out = moe.routed_moe(p["moe"], cfg, h, cache["counters"])
-        else:
-            out, k, v = ly.attention(p["attn"], cfg, h)
-            ly.fill_cache_from_prefill(k, v, cache["k"][j], cache["v"][j], cache["slot_pos"][j])
-        x = x + out
-        if marks is not None:
-            marks.append((kind, _mark(x.device)))
-    x = _norm(params["ln_f"], cfg, x)
-    last = ly.logits(params["embedding"], cfg, x[:, -1:])
-    cache["mamba"] = (conv_buf, *cache["mamba"][1:])
-    cache["pos"] = torch.full((), S, dtype=torch.int32, device=x.device)
-    return last, cache
+    return hybrid.prefill_walk(params, cfg, _plan(params, cfg), tokens, cache, marks)
 
 
 @torch.inference_mode()
-def decode_step(params, cfg: ModelConfig, token, cache, into=None):
-    """token: (B, 1) int32 → (logits (B, 1, V) float32, cache): new Mamba2
-    states (in a fresh stack, or in ``into``, a stack of the cache's layout
-    that may be the cache's own), each attention layer's k, v and slot_pos
-    updated in place, the counters added to in place, ``pos`` advanced on
-    the device."""
-    if cache["mamba"][0] is None:
-        raise ValueError(
-            f"{cfg.name}: the cache has no Mamba2 conv buffer (its prefill had fewer than "
-            f"ssm_conv - 1 = {cfg.ssm_conv - 1} tokens), so no decode step can follow it")
-    x = ly.embed(params["embedding"], cfg, token)
-    stacks = _stacks(params, cfg)
-    pos = cache["pos"]
-    new = tuple(torch.empty_like(t) for t in cache["mamba"]) if into is None else into
-    for kind, j in layer_kinds(cfg):
-        p = stacks[kind][j]
-        h = _norm(p["ln"], cfg, x)
-        if kind == "mamba":
-            out, _ = ssm.mamba2_decode_step(p["mixer"], cfg, h,
-                                            tuple(t[j] for t in cache["mamba"]),
-                                            out=tuple(t[j] for t in new))
-        elif kind == "moe":
-            out = moe.routed_moe(p["moe"], cfg, h, cache["counters"])
-        else:
-            out = ly.decode_attention(p["attn"], cfg, h, cache["k"][j], cache["v"][j],
-                                      cache["slot_pos"][j], pos)
-        x = x + out
-    x = _norm(params["ln_f"], cfg, x)
-    lg = ly.logits(params["embedding"], cfg, x)
-    return lg, {"mamba": new, "k": cache["k"], "v": cache["v"], "slot_pos": cache["slot_pos"],
-                "pos": pos + 1, "counters": cache["counters"]}
+def decode_step(params, cfg: ModelConfig, token, cache):
+    """One decode step, advancing ``cache`` in place (the counters added
+    to); see :func:`repro_torch.models.hybrid.decode_walk`."""
+    return hybrid.decode_walk(params, cfg, _plan(params, cfg), token, cache)

@@ -66,10 +66,8 @@ class Arch:
     def prefill(self, params, batch, max_seq=None):
         return self.module.prefill(params, self.cfg, batch, max_seq)
 
-    def decode_step(self, params, token, cache, **kw):
-        """One decode step; ``kw`` goes to the family's own (the hybrid's
-        ``into``)."""
-        return self.module.decode_step(params, self.cfg, token, cache, **kw)
+    def decode_step(self, params, token, cache):
+        return self.module.decode_step(params, self.cfg, token, cache)
 
     def init_cache(self, B, max_seq, device=None):
         return self.module.init_cache(self.cfg, B, max_seq, device=device)

@@ -136,12 +136,6 @@ def linear_recurrence_step(q, k, v, log_a, gate_i, state, n_state, *, normalize:
     return y, state, n_state
 
 
-#: The hand-written kernels a Mamba2 decode step launches, by the name the
-#: serving engine counts their launches under (each counts its own in
-#: ``.launches``).
-DECODE_KERNELS = {"ssm_step": mamba2_step}
-
-
 def mamba2_recurrence_step(q, k, v, log_a, gate_i, state, n_state, out=None):
     """Mamba2's exact single-step decode (no normalizer) with q and k (C and
     B) by group: (B, G, N), head h reads group h // (H / G). On a CUDA

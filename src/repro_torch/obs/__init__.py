@@ -14,7 +14,9 @@ Layers:
   (:class:`EventLog`) mirrored into the span trace as instant marks;
 * host span tracing — :func:`span` / :func:`traced` around bucket first
   uses, launches, uploads and folds, exported as Chrome trace JSON via
-  :func:`write_trace` and aggregate tables via :func:`aggregate`;
+  :func:`write_trace` and aggregate tables via :func:`aggregate`; device
+  marks (:func:`device_mark`, :func:`mark_ms`) time work on the device's
+  stream;
 * shared compile accounting — :class:`CompileStats` behind every engine's
   ``stats`` object, queryable in one shot via :func:`compile_snapshot`;
 * launch profiling — :func:`profile_launch` counted work + wall-time
@@ -76,8 +78,10 @@ from repro_torch.obs.trace import (
     Tracer,
     aggregate,
     complete,
+    device_mark,
     get_tracer,
     instant,
+    mark_ms,
     reset_trace,
     span,
     traced,
@@ -129,6 +133,8 @@ __all__ = [
     "traced",
     "instant",
     "complete",
+    "device_mark",
+    "mark_ms",
     "get_tracer",
     "write_trace",
     "write_trace_doc",

@@ -13,6 +13,7 @@ a ``torch.profiler`` session runs.  Otherwise entering a span is an
 environment read, an attribute read and a truth test — safe to leave on hot
 paths.  The tracer's clock anchor (:attr:`Tracer.anchor`) maps its monotonic
 times onto the wall clock, and from there onto the profiler's clock.
+:func:`device_mark` and :func:`mark_ms` time work on the device's own clock.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ import os
 import threading
 import time
 import warnings
+
+import torch
 
 from repro_torch.obs.state import tracing
 
@@ -297,3 +300,18 @@ def aggregate() -> dict:
 
 def reset_trace() -> None:
     return _TRACER.reset()
+
+
+def device_mark(device: torch.device):
+    """A point on the device's stream (a recorded CUDA event), or on the host
+    clock for the CPU. Reading a CUDA mark needs the work before it done."""
+    if device.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def mark_ms(a, b) -> float:
+    """Milliseconds from mark ``a`` to mark ``b`` (:func:`device_mark`)."""
+    return a.elapsed_time(b) if isinstance(a, torch.cuda.Event) else (b - a) * 1e3

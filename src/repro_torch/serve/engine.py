@@ -434,15 +434,15 @@ def greedy_step(arch: Arch, params, state: dict) -> torch.Tensor:
     """One greedy decode step on the static buffers ``state``: a cache of
     the arch's ``init_cache`` layout plus ``"tok"``, the (B, 1) int32 token.
     The step reads the token and ``pos`` there and writes everything back
-    in place: the new recurrent states into the cache's own stack, the KV
-    ring, the argmax into ``"tok"``, and ``pos`` advanced. Returns the
-    step's (B, 1, V) logits.
+    in place: the family's decode step advances the cache's own recurrent
+    states and KV ring, the argmax goes into ``"tok"``, and ``pos`` is
+    advanced. Returns the step's (B, 1, V) logits.
 
     This is the function :class:`DecodeBucket` captures as a CUDA graph;
     the arch's family must declare its decode step safe to capture
-    (``CUDA_GRAPH_DECODE``), which includes taking ``into``."""
+    (``CUDA_GRAPH_DECODE``)."""
     cache = {k: v for k, v in state.items() if k != "tok"}
-    logits, _ = arch.decode_step(params, state["tok"], cache, into=state["mamba"])
+    logits, _ = arch.decode_step(params, state["tok"], cache)
     state["tok"].copy_(torch.argmax(logits, dim=-1))
     state["pos"].add_(1)
     return logits
@@ -467,10 +467,6 @@ class DecodeBucket:
         self.state = tree_map(torch.clone, {**cache, "tok": tok})
         self.graph: torch.cuda.CUDAGraph | None = None
         self.logits: torch.Tensor | None = None
-        #: launches of each of the family's hand-written decode kernels
-        #: (``DECODE_KERNELS``) the captured step holds, by name; empty
-        #: before :meth:`capture`
-        self.kernel_launches: dict[str, int] = {}
 
     @staticmethod
     def key(tok: torch.Tensor, cache) -> tuple:
@@ -509,8 +505,6 @@ class DecodeBucket:
                 greedy_step(self.arch, self.params, self.state)
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        kernels = getattr(self.arch.module, "DECODE_KERNELS", {})
-        before = {name: fn.launches for name, fn in kernels.items()}
         try:
             # thread_local: the proxy's threads may use the card meanwhile
             with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
@@ -519,7 +513,6 @@ class DecodeBucket:
             raise RuntimeError(f"{self.arch.name}: capturing the decode step at batch "
                                f"{self.state['tok'].shape[0]} failed") from e
         self.graph, self.logits = graph, logits
-        self.kernel_launches = {name: fn.launches - before[name] for name, fn in kernels.items()}
 
 
 class ServingEngine:
@@ -545,9 +538,6 @@ class ServingEngine:
         self.captures = 0
         self.graph_replays = 0
         self.eager_steps = 0
-        #: the bucket the last :meth:`continue_greedy` replayed, ``None``
-        #: where it decoded eagerly
-        self.last_bucket: DecodeBucket | None = None
         #: for a cache with ``"counters"`` (the family's ``COUNTERS``), the
         #: last :meth:`continue_greedy`'s (counts after the prefill, counts
         #: after the decode steps), on the device
@@ -612,7 +602,6 @@ class ServingEngine:
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         out = [tok[:, 0]]
         prefill_counts = cache["counters"].clone() if "counters" in cache else None
-        self.last_bucket = None
         # steps - 1 decode steps: the reference's last decode is never read
         if self.uses_graphs and steps > 1:
             bucket = self.decode_bucket(tok, cache)
@@ -621,7 +610,6 @@ class ServingEngine:
                 bucket.step()
                 out.append(bucket.state["tok"][:, 0].clone())
             self.graph_replays += steps - 1
-            self.last_bucket = bucket
             cache = bucket.state
         else:
             for _ in range(steps - 1):
@@ -689,20 +677,6 @@ class ClosedLoopResult:
     phase_ms: dict[str, float] = dataclasses.field(default_factory=dict)
 
 
-def _mark(device: torch.device):
-    """A point on the device's stream (a recorded CUDA event), or on the host
-    clock for the CPU. Reading a CUDA mark needs the work before it done."""
-    if device.type == "cuda":
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-    return time.perf_counter()
-
-
-def _ms(a, b) -> float:
-    return a.elapsed_time(b) if isinstance(a, torch.cuda.Event) else (b - a) * 1e3
-
-
 class ClosedLoopServer(_BucketStats):
     """The paper's proxy as a CLOSED loop, one device step per round.
 
@@ -729,12 +703,9 @@ class ClosedLoopServer(_BucketStats):
     and each decode bucket the engine captures as a CUDA graph in a round.
     The ``serve.generate`` span is tagged with the round's decode steps
     replayed from a graph (``graph_replays``) and run eagerly
-    (``eager_steps``), and where the round replayed a graph, with the
-    launches of each hand-written kernel that graph holds
-    (``<name>_launches`` for the family's ``DECODE_KERNELS``:
-    ``ssm_step_launches``, one per Mamba2 layer). For a family whose
-    prefill takes marks (``PREFILL_MARKS``), the ``serve.launch`` span is
-    tagged with the prefill's device ms by layer kind (``<kind>_ms``); for
+    (``eager_steps``). For a family whose prefill takes marks
+    (``PREFILL_MARKS``), the ``serve.launch`` span is tagged with the
+    prefill's device ms by layer kind (``<kind>_ms``); for
     a cache with counters, while tracing, each of the two spans with its
     phase's counts (the family's ``COUNTERS``), read after the round's own
     sync.
@@ -869,7 +840,7 @@ class ClosedLoopServer(_BucketStats):
 
         arch, device = self.engine.arch, self.step.device
         q = float(len(keys))
-        mark0 = _mark(device)
+        mark0 = obs.device_mark(device)
         # The reference's key; its last field is telemetry collection.
         key = ("pfd", *self.step.codec.bucket_key("dec", self.layout.N, self.layout.K,
                                                   rows.shape[2], len(good)),
@@ -901,26 +872,27 @@ class ClosedLoopServer(_BucketStats):
                 self._collect(q=q, dt=dt, n_nxt=n_nxt, k_nxt=k_nxt, requested=len(keys),
                               delays=delays)
         self.stats.launches += 1
-        mark1 = _mark(device)
+        mark1 = obs.device_mark(device)
         eng = self.engine
         before = eng.captures, eng.graph_replays, eng.eager_steps
         with obs.span("serve.generate", steps=steps) as generate_span:
             # Generation continues at the padded batch; rows are cut to the
             # served subset at the end.
             gen = eng.continue_greedy(logits, cache, steps)
-            mark2 = _mark(device)
+            mark2 = obs.device_mark(device)
             tokens = gen[: len(good)].cpu().numpy()
         with self._lock:
             self.stats.traces += eng.captures - before[0]
         # The pick comes to the host only now: generation forced the launch,
         # so this read costs no stall.
         next_code = (int(n_nxt), int(k_nxt))
-        phase_ms["launch"], phase_ms["generate"] = _ms(mark0, mark1), _ms(mark1, mark2)
+        phase_ms["launch"] = obs.mark_ms(mark0, mark1)
+        phase_ms["generate"] = obs.mark_ms(mark1, mark2)
         if marks:
             # the prefill's layers by kind, from its marks (all done by now)
             kinds = {}
             for (_, a), (kind, b) in zip(marks, marks[1:]):
-                kinds[kind] = kinds.get(kind, 0.0) + _ms(a, b)
+                kinds[kind] = kinds.get(kind, 0.0) + obs.mark_ms(a, b)
             phase_ms.update({f"launch.{kind}": ms for kind, ms in kinds.items()})
             launch_span.tag(**{f"{kind}_ms": ms for kind, ms in kinds.items()})
         # The spans time the enqueue; their work's own time is known only now.
@@ -928,9 +900,6 @@ class ClosedLoopServer(_BucketStats):
         generate_span.tag(device_ms=phase_ms["generate"],
                           graph_replays=eng.graph_replays - before[1],
                           eager_steps=eng.eager_steps - before[2])
-        if eng.last_bucket is not None:
-            generate_span.tag(**{f"{name}_launches": n
-                                 for name, n in eng.last_bucket.kernel_launches.items()})
         if eng.counters is not None and obs.tracing():
             # the expert layers' counts, on the device until now
             names = arch.module.COUNTERS

@@ -55,6 +55,7 @@ from repro_torch.models import layers as ly
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import Arch
 from repro_torch.serve import ClosedLoopServer, FusedServingStep, ServePolicy, ServingEngine
+from repro_torch.serve.engine import DecodeBucket
 from repro_torch.storage import FaultyStore, MemoryStore, Proxy
 from repro_torch.train import AdamWConfig, Trainer, TrainerConfig, init_opt_state
 from repro_torch.train.train_step import value_and_grad
@@ -309,28 +310,39 @@ def test_decode_matches_prefill_continuation():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("target", ["own", "other"])
-def test_decode_into_a_given_stack_equals_the_fresh_stack(dtype, target):
-    """Eight decode steps writing the Mamba2 states into a given stack (the
-    cache's own, or another of its layout) equal the default's fresh stack
-    bit for bit: logits and the whole cache, every step."""
+@pytest.mark.parametrize("path", ["decode_step", "greedy_step"])
+def test_decode_into_a_given_stack_equals_the_fresh_stack(dtype, path):
+    """Eight greedy decode steps advance the Mamba2 stack they are given in
+    place, through the family's ``decode_step`` or ``greedy_step`` on a
+    CPU ``DecodeBucket``: the stack keeps its storage, and the logits and
+    the whole cache equal bit for bit those of ``decode_step`` run on a
+    fresh copy of the cache at every step."""
     smoke = get(NAME, smoke=True)
     arch = Arch(cfg=dataclasses.replace(smoke.cfg, dtype=dtype), module=hybrid)
     params = arch.init(torch.Generator().manual_seed(4))
     rng = np.random.default_rng(5)
     toks = torch.from_numpy(rng.integers(0, arch.cfg.vocab, size=(2, 10)).astype(np.int32))
-    _, cache = arch.prefill(params, {"tokens": toks}, max_seq=24)
-    fresh, given = cache, tree_map(torch.clone, cache)
+    logits, cache = arch.prefill(params, {"tokens": toks}, max_seq=24)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    fresh = tree_map(torch.clone, cache)
+    bucket = DecodeBucket(arch, params, tok, cache)
+    given = bucket.state if path == "greedy_step" else cache
+    ptrs = [t.data_ptr() for t in given["mamba"]]
     for i in range(8):
-        tok = torch.from_numpy(rng.integers(0, arch.cfg.vocab, size=(2, 1)).astype(np.int32))
-        want, fresh = arch.decode_step(params, tok, fresh)
-        into = (given["mamba"] if target == "own"
-                else tuple(torch.empty_like(t) for t in given["mamba"]))
-        got, given = arch.decode_step(params, tok, given, into=into)
-        assert all(a is b for a, b in zip(given["mamba"], into))
+        want, fresh = arch.decode_step(params, tok, tree_map(torch.clone, fresh))
+        if path == "greedy_step":
+            got = bucket.step()
+        else:
+            got, given = arch.decode_step(params, tok, given)
+        tok = torch.argmax(want, dim=-1).to(torch.int32)
+        assert [t.data_ptr() for t in given["mamba"]] == ptrs, i
         assert torch.equal(got, want), i
-        for (path, g), (_, w) in zip(tree_flatten(given), tree_flatten(fresh), strict=True):
-            assert torch.equal(g, w), (i, path)
+        cache_only = {k: v for k, v in given.items() if k != "tok"}
+        for (where, g), (_, w) in zip(tree_flatten(cache_only), tree_flatten(fresh),
+                                      strict=True):
+            assert torch.equal(g, w), (i, where)
+        if path == "greedy_step":
+            assert torch.equal(given["tok"], tok), i
 
 
 # -- training -------------------------------------------------------------------------

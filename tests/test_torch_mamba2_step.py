@@ -5,9 +5,10 @@ bit, B and C read by group equal ``ssm._per_head``'s repeat, and a
 destination (fresh or the state itself) takes exactly the new state. The
 kernel's wrapper (``repro_torch.kernels.ssm.mamba2_step``) refuses what the
 kernel does not take, CPU tensors included, before a launch.
-``ssm.mamba2_decode_step`` and both families' ``decode_step`` give the same
-results with a destination as without, at zamba2's and Nemotron-3-Nano's
-smoke configs. The kernel itself is held to the plain version on the card in
+``ssm.mamba2_decode_step`` gives the same results with a destination as
+without, and both families' ``decode_step`` advances the cache's own Mamba2
+stack in place, one recurrence step a Mamba2 layer, at zamba2's and
+Nemotron-3-Nano's smoke configs. The kernel itself is held to the plain version on the card in
 ``tests/test_torch_mamba2_kernel_cuda.py``."""
 
 import dataclasses
@@ -19,7 +20,7 @@ import torch
 from repro_torch.kernels.ssm.mamba2_step import mamba2_step, step_counts
 from repro_torch.models import get, ssm
 from repro_torch.models.registry import Arch
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_map
 
 CPU = torch.device("cpu")
 
@@ -120,11 +121,28 @@ def test_the_kernel_refuses_cpu_tensors():
     assert torch.equal(state, before[0]) and mamba2_step.launches == before[1]
 
 
-def test_both_mamba2_families_count_the_step_kernel_in_their_decode():
-    from repro_torch.models import hybrid, nemotron_h
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "nemotron3-nano-30b-a3b"])
+def test_both_mamba2_families_step_the_recurrence_once_a_mamba2_layer(name, monkeypatch):
+    """Each decode step of the smoke model runs Mamba2's recurrence step
+    (the kernel's launch on a card) once for each Mamba2 layer."""
+    arch = _smoke(name)
+    n_mamba = len(arch.init_cache(1, 4, device="meta")["mamba"][1])
+    calls = []
+    inner = ssm.mamba2_recurrence_step
 
-    for family in (hybrid, nemotron_h):
-        assert family.DECODE_KERNELS == {"ssm_step": mamba2_step}
+    def spy(*args, **kw):
+        calls.append(1)
+        return inner(*args, **kw)
+
+    monkeypatch.setattr(ssm, "mamba2_recurrence_step", spy)
+    params = arch.init(torch.Generator().manual_seed(5))
+    toks = torch.randint(0, arch.cfg.vocab, (2, 6), generator=torch.Generator().manual_seed(6),
+                         dtype=torch.int32)
+    _, cache = arch.prefill_tokens(params, toks, max_seq=9)
+    assert not calls  # the prefill runs the chunked recurrence
+    for step in range(1, 4):
+        _, cache = arch.decode_step(params, toks[:, step:step + 1], cache)
+        assert len(calls) == n_mamba * step
 
 
 def test_step_refuses_a_destination_that_partly_overlaps_the_state():
@@ -174,19 +192,22 @@ def test_decode_step_with_a_destination_equals_it_without(name, in_place):
 
 @pytest.mark.parametrize("name", ["zamba2-2.7b", "nemotron3-nano-30b-a3b"])
 def test_family_decode_into_its_own_stack_equals_a_fresh_one(name):
-    """Two decode steps of the whole smoke model: into the cache's own
-    Mamba2 stack (the graph path's ``into``) as into a fresh one."""
+    """Eight decode steps of the whole smoke model advance the cache's own
+    Mamba2 stack in place (its storage kept), with the logits and the whole
+    cache of the same steps each run on a fresh copy of the cache."""
     arch = _smoke(name)
     params = arch.init(torch.Generator().manual_seed(0))
     toks = torch.randint(0, arch.cfg.vocab, (2, 8), generator=torch.Generator().manual_seed(1),
                          dtype=torch.int32)
-    _, cache = arch.prefill_tokens(params, toks, max_seq=12)
-    own = tree_map(torch.clone, cache)
+    _, cache = arch.prefill_tokens(params, toks, max_seq=17)
+    fresh = tree_map(torch.clone, cache)
+    ptrs = [t.data_ptr() for t in cache["mamba"]]
     tok = toks[:, -1:]
-    for _ in range(2):
+    for i in range(8):
         lg, cache = arch.decode_step(params, tok, cache)
-        lg2, own = arch.decode_step(params, tok, own, into=own["mamba"])
-        assert torch.equal(lg, lg2)
+        want, fresh = arch.decode_step(params, tok, tree_map(torch.clone, fresh))
+        assert [t.data_ptr() for t in cache["mamba"]] == ptrs, i
+        assert torch.equal(lg, want), i
+        for (where, a), (_, b) in zip(tree_flatten(cache), tree_flatten(fresh), strict=True):
+            assert torch.equal(a, b), (i, where)
         tok = torch.argmax(lg, dim=-1).to(torch.int32)
-    for a, b in zip(cache["mamba"], own["mamba"], strict=True):
-        assert torch.equal(a, b)

@@ -238,6 +238,9 @@ def test_other_families_raise_naming_item_13():
         hybrid.init(torch.Generator())
     with pytest.raises(NotImplementedError, match="repro_torch.models.hybrid runs"):
         hybrid.prefill({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    nemo = Arch(cfg=dataclasses.replace(arch.cfg, family="nemotron_h"), module=arch.module)
+    with pytest.raises(NotImplementedError, match="repro_torch.models.nemotron_h runs"):
+        nemo.init(torch.Generator())
 
 
 def test_make_batch_draws_the_reference_batch():

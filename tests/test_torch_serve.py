@@ -304,7 +304,8 @@ def test_greedy_step_writes_every_buffer_in_place():
 
 def test_only_the_hybrid_family_declares_its_decode_step_capturable():
     """The hybrid family, and the nemotron_h family that shares its
-    capture contract (Mamba2 states written ``into`` the bucket's stack)."""
+    capture contract (a decode step that advances the bucket's buffers in
+    place)."""
     assert [f for f, m in registry._FAMILY_MODULES.items()
             if getattr(m, "CUDA_GRAPH_DECODE", False)] == ["hybrid", "nemotron_h"]
     for name in ("qwen1.5-0.5b", "zamba2-2.7b"):  # on the CPU no family replays
