@@ -32,7 +32,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    built at its first call) against the plain step, S' and n' bit for bit,
    at a Nemotron-3-Nano and a zamba2-2.7b layer's decode shape, timed per
    call and replayed from a CUDA graph (as the decode step runs it) beside
-   its bound and the plain step;
+   its bound and the plain step. The decode attention kernel
+   (``decode_attention.cu``, built at its first call) against its plain
+   version at the decode cells' shapes (zamba2-2.7b's batch and chat sites,
+   a Nemotron-3-Nano GQA layer), timed the same way beside its bound, the
+   plain version and ``scaled_dot_product_attention``;
 4. main path — the paper's §V-A deployment through the port's entry points:
    128 seeded 3 MiB objects written through the proxy (L = 16, (12, 6) strip
    code, feedback write policy), then 4 rounds of 32 raw reads decoded by
@@ -150,6 +154,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -585,6 +590,90 @@ def check_mamba2_step(device) -> dict:
     if not rec["y_err_over_bound"] <= 1.0:
         raise AssertionError(f"mamba2_step's y is off the float64 sum by more than its bound: "
                              f"{rec['cases']}")
+    return rec
+
+
+#: (B, Smax, Hkv, G, hd, window) of the decode cells' attention: a zamba2-2.7b
+#: shared-attention site in the batch cell (32 rows, 128 + 64 slots) and in the
+#: chat cell (1,024 + 32), and a Nemotron-3-Nano GQA layer (64 rows, 512 + 128)
+DECODE_ATTENTION_SHAPES = {"zamba2_batch": (32, 192, 32, 1, 80, 4096),
+                           "zamba2_chat": (32, 1056, 32, 1, 80, 4096),
+                           "nemotron": (64, 640, 2, 16, 128, None)}
+
+
+def check_decode_attention(device) -> dict:
+    """The decode attention kernel against its plain version at the decode
+    cells' shapes (bfloat16, a full ring): both held to the float64 P·V of
+    the plain version's rounded p, the kernel within twice the plain
+    version's largest distance plus the float32 order bound Smax · 2⁻²⁴ ·
+    Σ|p v| (``err_over_bound`` at most 1), and the share of outputs equal to
+    the plain version's; its time per call and replayed from a graph
+    (:func:`graph_ms`), as a multiple of its bound (K and V read once, at
+    3.35 TB/s); the plain version's, and ``scaled_dot_product_attention``'s
+    over the same cache (the library yardstick: the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention.decode_attention import (
+        MASKED, attention_counts, decode_attention, decode_attention_plain)
+    from repro_torch.obs.profile import HBM_BW
+
+    rec = {"cases": {}, "err_over_bound": 0.0}
+    for label, (B, Smax, Hkv, G, hd, window) in DECODE_ATTENTION_SHAPES.items():
+        g = torch.Generator(device=device).manual_seed(0)
+        q = torch.randn((B, Hkv * G, hd), generator=g, device=device).bfloat16()
+        ck, cv = (torch.randn((B, Smax, Hkv, hd), generator=g, device=device).bfloat16()
+                  for _ in range(2))
+        sp = torch.arange(Smax, dtype=torch.int32, device=device)
+        pos = torch.tensor(Smax - 1, dtype=torch.int32, device=device)
+        out = torch.empty_like(q)
+
+        def kernel():
+            return decode_attention(q, ck, cv, sp, pos, window=window, out=out)
+
+        def plain():
+            return decode_attention_plain(q, ck, cv, sp, pos, window=window)
+
+        q4 = q.reshape(B, Hkv * G, 1, hd)
+        mask = (sp >= 0) & (sp <= pos)
+
+        def library():
+            return F.scaled_dot_product_attention(q4, ck.transpose(1, 2), cv.transpose(1, 2),
+                                                  attn_mask=mask[None, None, None],
+                                                  enable_gqa=True)
+
+        got, want = kernel().clone(), plain()
+        s = torch.einsum("bhgd,bkhd->bhgk", q.reshape(B, Hkv, G, hd).float(), ck.float())
+        p = torch.softmax(torch.where(mask, s / math.sqrt(hd), MASKED), dim=-1).bfloat16()
+        terms = p.double()[..., None] * cv.double().permute(0, 2, 1, 3)[:, :, None]
+        o64 = terms.sum(dim=3).reshape(q.shape)
+        order = Smax * 2.0 ** -24 * terms.abs().sum(dim=3).reshape(q.shape)
+        del terms, s, p
+        plain_err = float((want.double() - o64).abs().max())
+        ratio = float(((got.double() - o64).abs() / (2 * plain_err + order)).max())
+        equal = float((got == want).float().mean())
+        del o64, order
+        bound_ms = attention_counts(B, Hkv * G, Hkv, Smax, hd, 2)[1] / HBM_BW * 1e3
+        case = {"shape": [B, Smax, Hkv, G, hd], "err_over_bound": ratio,
+                "plain_err": plain_err, "equal_share": equal, "bound_ms": bound_ms,
+                "ms": median_ms(kernel), "graph_ms": graph_ms(kernel),
+                "plain_ms": median_ms(plain, reps=10), "plain_graph_ms": graph_ms(plain),
+                "library_ms": median_ms(library, reps=10), "library_graph_ms": graph_ms(library)}
+        print(f"[kernels] decode_attention {label} (B, Smax, Hkv, G, hd) = "
+              f"{(B, Smax, Hkv, G, hd)}: off the float64 P.V by {ratio:.4f} of its bound, "
+              f"{equal:.2%} of outputs equal to the plain version's; {case['ms']:.4f} ms per "
+              f"call, {case['graph_ms']:.4f} ms replayed from a graph; plain "
+              f"{case['plain_ms']:.4f} / {case['plain_graph_ms']:.4f} ms; "
+              f"scaled_dot_product_attention {case['library_ms']:.4f} / "
+              f"{case['library_graph_ms']:.4f} ms; bound {bound_ms:.4f} ms (bytes); kernel = "
+              f"{case['graph_ms'] / bound_ms:.2f}x bound replayed", flush=True)
+        rec["cases"][label] = case
+        rec["err_over_bound"] = max(rec["err_over_bound"], ratio)
+        del q, ck, cv, out, got, want
+        torch.cuda.empty_cache()
+    if not rec["err_over_bound"] <= 1.0:
+        raise AssertionError(f"decode_attention is off the float64 P.V by more than its "
+                             f"bound: {rec['cases']}")
     return rec
 
 
@@ -1274,6 +1363,7 @@ def run_serve(device, *, smoke: bool = False, model: str = SERVE_MODEL,
     from repro_torch.coding.codec import Codec
     from repro_torch.coding.layout import layout_for_file
     from repro_torch.core import PAPER_READ_3MB, PAPER_WRITE_3MB, FeedbackPolicy, TOFECPolicy
+    from repro_torch.kernels.attention.decode_attention import decode_attention
     from repro_torch.kernels.gf2mm.gf2mm import gf2_rs_matmul_bytes
     from repro_torch.kernels.ssm.mamba2_step import mamba2_step
     from repro_torch.models import get
@@ -1332,7 +1422,8 @@ def run_serve(device, *, smoke: bool = False, model: str = SERVE_MODEL,
             inside ``around``), checked."""
             keys = [f"lm/{i}" for i in ids]
             k1_before = gf2_rs_matmul_bytes.launches
-            decode_before = mamba2_step.launches, engine.captures, engine.eager_steps
+            decode_before = (mamba2_step.launches, engine.captures, engine.eager_steps,
+                             decode_attention.launches)
             with around:
                 t0 = time.monotonic()
                 res = srv.serve_round(keys, steps=steps)
@@ -1360,6 +1451,7 @@ def run_serve(device, *, smoke: bool = False, model: str = SERVE_MODEL,
             rnd = {"round": r, "wall_ms": wall_ms, **{f"{k}_ms": v for k, v in ph.items()},
                    "generate_direct_ms": ref_ms, "k1_launches": k1,
                    "mamba2_step_launches": mamba2_step.launches - decode_before[0],
+                   "decode_attention_launches": decode_attention.launches - decode_before[3],
                    "captures": engine.captures - decode_before[1],
                    "eager_steps": engine.eager_steps - decode_before[2], "tokens": res.tokens,
                    "storage_total_s": res.storage_total_s,
@@ -2481,30 +2573,33 @@ def run_moe_train(device, *, smoke: bool = False, seq: int = MOE_TRAIN_SEQ) -> d
     return rec
 
 
-def check_mamba2_launches(rec: dict, n_mamba: int) -> None:
+def check_decode_launches(rec: dict, n_mamba: int, n_sites: int) -> None:
     """zamba2's ``[families]`` serve (``rec["serve"]["zamba2-2.7b"]``) on
-    the Mamba2 step kernel (``mamba2_step.launches``, counted around each
-    round): some round captured a decode bucket, and each round launched it
-    ``n_mamba`` times for each decode step it ran eagerly and for each step
-    of each capture (the warm-up steps and the captured one), so every
-    captured step holds one launch a Mamba2 layer. The replays launch it
-    from their graphs, not from the host."""
+    the Mamba2 step kernel (``mamba2_step.launches``) and the decode
+    attention kernel (``decode_attention.launches``), each counted around
+    each round: some round captured a decode bucket, and each round launched
+    them ``n_mamba`` and ``n_sites`` times for each decode step it ran
+    eagerly and for each step of each capture (the warm-up steps and the
+    captured one), so every captured step holds one launch a Mamba2 layer
+    and one an attention site. The replays launch them from their graphs,
+    not from the host."""
     from repro_torch.serve.engine import DecodeBucket
 
     serve = rec["serve"]["zamba2-2.7b"]
     dec = serve["decode"]
-    got = [r["mamba2_step_launches"] for r in serve["rounds"]]
-    need = [n_mamba * (r["eager_steps"] + r["captures"] * (DecodeBucket.WARMUP + 1))
-            for r in serve["rounds"]]
-    print(f"[families] zamba2 serve: Mamba2 step kernel launches by round {got} (need "
-          f"{n_mamba} layers x (eager steps + captures x {DecodeBucket.WARMUP + 1} steps) = "
-          f"{need}); {dec['captures']} captures, {dec['graph_replays']} replays", flush=True)
     if not dec["capture_launches"]:
         raise AssertionError("zamba2's serve captured no decode bucket")
-    if got != need:
-        raise AssertionError(f"the Mamba2 step kernel launched {got} times by round on "
-                             f"zamba2's serve, want {need}: a captured step lacks its "
-                             f"launches")
+    steps = [r["eager_steps"] + r["captures"] * (DecodeBucket.WARMUP + 1)
+             for r in serve["rounds"]]
+    for kernel, per_step in (("mamba2_step", n_mamba), ("decode_attention", n_sites)):
+        got = [r[f"{kernel}_launches"] for r in serve["rounds"]]
+        need = [per_step * n for n in steps]
+        print(f"[families] zamba2 serve: {kernel} launches by round {got} (need {per_step} a "
+              f"step x (eager steps + captures x {DecodeBucket.WARMUP + 1} steps) = {need}); "
+              f"{dec['captures']} captures, {dec['graph_replays']} replays", flush=True)
+        if got != need:
+            raise AssertionError(f"{kernel} launched {got} times by round on zamba2's serve, "
+                                 f"want {need}: a captured step lacks its launches")
 
 
 def run_families(device) -> dict:
@@ -2521,25 +2616,31 @@ def run_families(device) -> dict:
     restarted final loss equal to the straight run's to rel 1e-4). Each
     model is dropped and the allocator's cache emptied before the next.
 
-    The Mamba2 step kernel's launches are counted by path
-    (``rec["mamba2_step_launches"]``, keyed by each path's tag). zamba2's
-    serve must launch it once a Mamba2 layer in each decode step it ran
-    eagerly and in each step of each capture (its warm-up steps and the
-    captured one), round by round (:func:`check_mamba2_launches`), and its
-    continuation must launch one a layer."""
+    The Mamba2 step kernel's and the decode attention kernel's launches are
+    counted by path (``rec["mamba2_step_launches"]``,
+    ``rec["decode_attention_launches"]``, keyed by each path's tag).
+    zamba2's serve must launch them once a Mamba2 layer and once an
+    attention site in each decode step it ran eagerly and in each step of
+    each capture (its warm-up steps and the captured one), round by round
+    (:func:`check_decode_launches`), and its continuation must launch the
+    Mamba2 step kernel once a layer."""
+    from repro_torch.kernels.attention.decode_attention import decode_attention
     from repro_torch.kernels.ssm.mamba2_step import mamba2_step
-    from repro_torch.models import get
+    from repro_torch.models import get, hybrid
 
-    rec: dict = {"serve": {}, "wall_s": {}, "mamba2_step_launches": {}}
+    rec: dict = {"serve": {}, "wall_s": {}, "mamba2_step_launches": {},
+                 "decode_attention_launches": {}}
 
     def timed(key: str, tag: str, fn):
-        t0, launches = time.monotonic(), mamba2_step.launches
+        t0, launches = time.monotonic(), (mamba2_step.launches, decode_attention.launches)
         rec[key] = out = fn()
         rec["wall_s"][tag] = time.monotonic() - t0
-        rec["mamba2_step_launches"][tag] = mamba2_step.launches - launches
+        rec["mamba2_step_launches"][tag] = mamba2_step.launches - launches[0]
+        rec["decode_attention_launches"][tag] = decode_attention.launches - launches[1]
         _empty_cache(device)
         print(f"{tag}: {rec['wall_s'][tag]:.1f} s wall, Mamba2 step kernel launched "
-              f"{rec['mamba2_step_launches'][tag]} times", flush=True)
+              f"{rec['mamba2_step_launches'][tag]} times, decode attention kernel "
+              f"{rec['decode_attention_launches'][tag]} times", flush=True)
         return out
 
     for model, layers, rows, prompt_len, max_seq in FAMILY_SERVES:
@@ -2559,8 +2660,9 @@ def run_families(device) -> dict:
                 device, model=model, layers=XLSTM_TRAIN_LAYERS, seq=XLSTM_TRAIN_SEQ,
                 batch=XLSTM_TRAIN_BATCH, tag="[families] xlstm train"))
         if model == "zamba2-2.7b":
-            n_mamba = layers or get(model).cfg.n_layers  # a Mamba2 block every layer
-            check_mamba2_launches(rec, n_mamba)
+            cfg = cut(get(model), layers).cfg
+            n_mamba = cfg.n_layers  # a Mamba2 block every layer
+            check_decode_launches(rec, n_mamba, hybrid._attn_flags(cfg)[2])
             timed("zamba2_continuation", "[families] zamba2 continuation",
                   lambda: check_continuation(device, model, layers))
             if rec["mamba2_step_launches"]["[families] zamba2 continuation"] < n_mamba:
@@ -2586,6 +2688,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build
     from repro_torch.kernels.gf2mm import gf2mm
+    from repro_torch.kernels.attention.decode_attention import decode_attention
     from repro_torch.kernels.ssm.mamba2_step import mamba2_step
 
     smi = nvidia_smi_line()
@@ -2605,11 +2708,13 @@ def main() -> int:
     k1 = check_k1(device, np.random.default_rng(1))
     k2 = check_k2(device)
     mamba2_step_rec = check_mamba2_step(device)
-    info = build.BUILD_INFO["mamba2_step"]
-    print(f"[build] mamba2_step nvcc {info['seconds']:.2f} s -> {info['path']}", flush=True)
-    for line in info["log"].splitlines():
-        if "ptxas" in line:
-            print(f"[build] mamba2_step {line.strip()}", flush=True)
+    decode_attention_rec = check_decode_attention(device)
+    for name in ("mamba2_step", "decode_attention"):
+        info = build.BUILD_INFO[name]
+        print(f"[build] {name} nvcc {info['seconds']:.2f} s -> {info['path']}", flush=True)
+        for line in info["log"].splitlines():
+            if "ptxas" in line:
+                print(f"[build] {name} {line.strip()}", flush=True)
 
     gf2mm.gf2_rs_matmul_bytes.launches = 0
     main_rec = run_main_path(device)
@@ -2629,7 +2734,9 @@ def main() -> int:
         raise AssertionError("K2 was not launched on its path")
 
     gf2mm.gf2_rs_matmul_bytes.launches = 0
+    decode_attention.launches = 0
     serve = run_serve(device, obs_rounds=SERVE_ROUNDS)
+    serve_attention_launches = decode_attention.launches
     serve_launches = serve["k1_launches"]
     print(f"[serve] K1 launches in the phase: {serve_launches} (per round "
           f"{[r['k1_launches'] for r in serve['rounds']]}, the rest the proxy's write and read "
@@ -2657,11 +2764,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     gf2mm.gf2_rs_matmul_bytes.launches = 0
-    mamba2_step.launches = 0
+    mamba2_step.launches = decode_attention.launches = 0
     t0 = time.monotonic()
     families = run_families(device)
     families_launches = gf2mm.gf2_rs_matmul_bytes.launches
     mamba2_launches = mamba2_step.launches
+    families_attention_launches = decode_attention.launches
     print(f"[families] the phase: {time.monotonic() - t0:.1f} s wall", flush=True)
     trained = [(name, families[f"{name}_train"]) for name in ("xlstm", "zamba2", "whisper")]
     need = len(FAMILY_SERVES) * FAMILY_ROUNDS + sum(
@@ -2748,6 +2856,17 @@ def main() -> int:
         "y_err_over_bound": mamba2_step_rec["y_err_over_bound"],
         "library_ms": None,
         "cases": mamba2_step_rec["cases"],
+    }, {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/attention/csrc/decode_attention.cu",
+        "replaces": None,
+        "launches": serve_attention_launches + families_attention_launches,
+        "launches_by_path": {"serve": serve_attention_launches,
+                             **families["decode_attention_launches"]},
+        "err_over_bound": decode_attention_rec["err_over_bound"],
+        "library_call": "torch.nn.functional.scaled_dot_product_attention",
+        "cases": decode_attention_rec["cases"],
     }]}
     print(nvidia_smi_line(), flush=True)
     print(json.dumps(kernels), flush=True)

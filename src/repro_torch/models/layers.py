@@ -13,8 +13,10 @@ Conventions:
     softmax accumulate in float32, with the reference's casts at the same
     places.
   * attention is GQA with chunked online softmax for prefill (the
-    reference's chunk sizes, so float32 sums run in the same order), plain
-    cached attention over a ring buffer for decode.
+    reference's chunk sizes, so float32 sums run in the same order), and
+    decode attention over a ring buffer through
+    :func:`repro_torch.kernels.attention.decode_attention.decode_attention`
+    (a hand-written kernel on a card, the plain version on the CPU).
 
 The ``*_logical_axes`` functions give each parameter's logical axes, as
 the reference's, for the sharding plan (:mod:`repro_torch.models.sharding`,
@@ -31,13 +33,13 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.attention import decode_attention as attn_kernel
+from repro_torch.kernels.attention.decode_attention import MASKED, tanh_cap as _softcap
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import constrain
 
 #: ``slot_pos`` of an empty cache slot and ``kpos`` of a padded key.
 EMPTY_POS = -(2**30)
-#: Score of a masked position (the reference's fill value).
-MASKED = -1e30
 
 
 def dt(cfg: ModelConfig) -> torch.dtype:
@@ -127,10 +129,6 @@ def use_weight(cfg: ModelConfig, w, *axes):
     contraction; on one card that is the identity
     (:func:`repro_torch.models.sharding.constrain`)."""
     return constrain(w, *axes) if cfg.weight_gather else w
-
-
-def _softcap(x, cap):
-    return cap * torch.tanh(x / cap) if cap else x
 
 
 def project_q(params, cfg: ModelConfig, x, positions):
@@ -325,16 +323,8 @@ def decode_attention(
     cache_k.index_copy_(1, slot, k_new)
     cache_v.index_copy_(1, slot, v_new)
     slot_pos.index_copy_(0, slot, pos.reshape(1).to(slot_pos.dtype))
-    Hkv, G = cfg.n_kv_heads, cfg.q_per_kv
-    qh = q.reshape(B, 1, Hkv, G, hd)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qh.to(torch.float32), cache_k.to(torch.float32))
-    s = _softcap(s / math.sqrt(hd), cfg.attn_softcap)
-    mask = (slot_pos <= pos) & (slot_pos >= 0)
-    if window is not None:
-        mask &= slot_pos > pos - window
-    s = torch.where(mask, s, MASKED)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(cache_v.dtype), cache_v)
+    o = attn_kernel.decode_attention(q.reshape(B, cfg.n_heads, hd), cache_k, cache_v, slot_pos,
+                                     pos, window=window, softcap=cfg.attn_softcap)
     return o.reshape(B, 1, cfg.n_heads * hd) @ params["wo"]
 
 

@@ -24,6 +24,7 @@ from repro_torch.ckpt import save_checkpoint
 from repro_torch.coding.codec import Codec, pow2_bucket
 from repro_torch.coding.layout import SharedKeyLayout
 from repro_torch.core import PAPER_READ_3MB, FeedbackPolicy, RequestClass, StaticPolicy
+from repro_torch.kernels.attention.decode_attention import decode_attention
 from repro_torch.kernels.gf2mm import gf2mm
 from repro_torch.kernels.ssm.mamba2_step import mamba2_step
 from repro_torch.models import get, hybrid, ssm
@@ -252,10 +253,12 @@ def test_replayed_decode_at_published_width(cuda):
     toks = torch.from_numpy(np.random.default_rng(6).integers(0, arch.cfg.vocab, (32, 128))
                             .astype(np.int32)).to(cuda)
     logits, cache = arch.prefill_tokens(engine.params, toks, max_seq=engine.max_seq)
-    before = mamba2_step.launches
+    before = mamba2_step.launches, decode_attention.launches
     engine.decode_bucket(torch.argmax(logits, dim=-1).to(torch.int32), cache)
     # the warm-up steps and the captured one each launch one Mamba2 step kernel a layer
-    assert mamba2_step.launches - before == 54 * (DecodeBucket.WARMUP + 1)
+    # and one decode attention kernel a shared-attention site
+    assert mamba2_step.launches - before[0] == 54 * (DecodeBucket.WARMUP + 1)
+    assert decode_attention.launches - before[1] == 9 * (DecodeBucket.WARMUP + 1)
     _replay_equals_eager(engine, toks, 8)
     assert engine.captures == 1 and engine.graph_replays == 7
 

@@ -15,6 +15,7 @@ import dataclasses
 import pytest
 import torch
 
+from repro_torch.kernels.attention.decode_attention import decode_attention
 from repro_torch.kernels.ssm.mamba2_step import mamba2_step
 from repro_torch.models import get
 from repro_torch.models.registry import Arch
@@ -53,10 +54,12 @@ def test_replayed_decode_equals_eager_at_published_widths(cuda):
         t = torch.argmax(lg, dim=-1).to(torch.int32)
 
     bucket = DecodeBucket(arch, params, tok, pristine)
-    before = mamba2_step.launches
+    before = mamba2_step.launches, decode_attention.launches
     bucket.capture(torch.cuda.graph_pool_handle())
-    # the warm-up steps and the captured one each launch one Mamba2 step kernel a Mamba2 layer
-    assert mamba2_step.launches - before == 23 * (DecodeBucket.WARMUP + 1)
+    # the warm-up steps and the captured one each launch one Mamba2 step kernel a Mamba2
+    # layer and one decode attention kernel an attention layer
+    assert mamba2_step.launches - before[0] == 23 * (DecodeBucket.WARMUP + 1)
+    assert decode_attention.launches - before[1] == 6 * (DecodeBucket.WARMUP + 1)
     bucket.load(tok, pristine)
     replayed = [bucket.step().clone() for _ in range(steps)]
     for i, (a, b) in enumerate(zip(eager, replayed)):
