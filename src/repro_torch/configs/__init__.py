@@ -7,6 +7,7 @@ returning a reduced same-family config for CPU tests.
 """
 
 from repro_torch.configs import (
+    deepseek_v3,
     gemma2_2b,
     grok_1_314b,
     mistral_nemo_12b,
@@ -29,7 +30,7 @@ SMOKE_CONFIGS = {m.CONFIG.name: m.smoke_config() for m in _MODULES}
 
 #: The architectures only the port has (the reference package runs none of
 #: them): served through the same registry, outside the mirrored ten.
-_PORT_MODULES = [nemotron3_nano_30b_a3b]
+_PORT_MODULES = [nemotron3_nano_30b_a3b, deepseek_v3]
 
 PORT_CONFIGS = {m.CONFIG.name: m.CONFIG for m in _PORT_MODULES}
 

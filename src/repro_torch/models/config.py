@@ -17,7 +17,7 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid | encdec | vlm | nemotron_h
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm | nemotron_h | deepseek_v3
     n_layers: int
     d_model: int
     n_heads: int
@@ -32,6 +32,20 @@ class ModelConfig:
     qkv_bias: bool = False
     use_rope: bool = True  # False: no position embedding (NoPE)
     rope_theta: float = 10_000.0
+    # YaRN-scaled RoPE of latent attention (deepseek_v3)
+    yarn_factor: float = 0.0
+    yarn_original: int = 0  # the context the unscaled frequencies were trained on
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+    # multi-head latent attention (deepseek_v3): the queries' and the keys'
+    # and values' low-rank widths, and each head's widths
+    mla_q_rank: int = 0
+    mla_kv_rank: int = 0
+    mla_nope_dim: int = 0
+    mla_rope_dim: int = 0
+    mla_v_dim: int = 0
     sliding_window: int | None = None  # all layers SWA (mixtral)
     local_global_period: int | None = None  # gemma2: every other layer local
     local_window: int = 4096
@@ -44,7 +58,13 @@ class ModelConfig:
     router_experts: int = 0  # the router's width; 0: n_experts
     expert_first: int = 0  # the first expert held here
     routed_scale: float = 1.0  # the routed experts' weights times this
-    shared_expert_ff: int = 0  # the shared expert's width (nemotron_h)
+    shared_expert_ff: int = 0  # the shared expert's width (nemotron_h, deepseek_v3)
+    moe_ff: int = 0  # the routed experts' width where the dense MLPs differ (0: d_ff)
+    # group-limited routing: the router's experts in n_group groups, a
+    # token's top_k taken from its topk_group best groups
+    n_group: int = 1
+    topk_group: int = 1
+    dense_layers: int = 0  # deepseek_v3: the first layers have a dense MLP, the rest experts
     # SSM / recurrent
     ssm_state: int = 64
     ssm_conv: int = 4
@@ -93,6 +113,10 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def expert_ff(self) -> int:
+        return self.moe_ff or self.d_ff
 
     @property
     def q_per_kv(self) -> int:

@@ -33,7 +33,7 @@ import torch
 
 from repro_torch import obs, resolve_device
 from repro_torch.models import layers as ly
-from repro_torch.models import moe, ssm
+from repro_torch.models import mla, moe, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import (
     _init_layers,
@@ -137,18 +137,20 @@ def train_loss(params, cfg: ModelConfig, batch) -> torch.Tensor:
 # -- serving ------------------------------------------------------------------
 #
 # Both Mamba2 hybrids (this family and :mod:`~repro_torch.models.nemotron_h`)
-# serve through one prefill walk and one decode walk over a layer plan: the
-# model's steps in order, each a :class:`Step`. Every step is a pre-norm
-# residual block, x += block(RMSNorm(x)).
+# and :mod:`~repro_torch.models.deepseek_v3` serve through one prefill walk and
+# one decode walk over a layer plan: the model's steps in order, each a
+# :class:`Step`. Every step is a pre-norm residual block, x += block(RMSNorm(x)).
 
 
 class Step(NamedTuple):
     """One step of a layer plan."""
 
-    kind: str  # "mamba", "attn", "mlp" or "moe"
+    kind: str  # "mamba", "attn", "mla", "mlp" or "moe"
     ln: dict  # its RMSNorm's parameters
     block: dict  # the block's parameters
-    slot: int | None  # its slot in the cache: a Mamba2 layer's states, an attention's KV
+    # its slot in the cache: a Mamba2 layer's states, an attention's KV, a
+    # latent attention's latents
+    slot: int | None
     window: int | None  # an attention's sliding window (None: the whole prefix)
 
 
@@ -205,12 +207,14 @@ def cache_logical_axes(cfg: ModelConfig, B: int):
 def prefill_walk(params, cfg: ModelConfig, plan: list[Step], tokens, cache, marks):
     """Run the prompt through ``plan`` from the empty ``cache`` (the
     family's ``init_cache``), filling it: (last-token logits, cache). A
-    prompt shorter than ssm_conv − 1 leaves the cache's conv buffer
+    prompt shorter than ssm_conv − 1 leaves the cache's Mamba2 conv buffer
     ``None``, as the reference's, and a decode step from it raises. With
-    ``marks`` (a list), appends ``("start", mark)`` and then ``(kind,
-    mark)`` after each step (:func:`repro_torch.obs.device_mark`)."""
+    ``marks`` (a list), appends ``("start", mark)`` where the list is empty
+    and then ``(kind, mark)`` after each step
+    (:func:`repro_torch.obs.device_mark`), so walks over row groups of one
+    batch mark one run of steps."""
     x = ly.embed(params["embedding"], cfg, tokens)
-    if marks is not None:
+    if marks is not None and not marks:
         marks.append(("start", obs.device_mark(x.device)))
     for kind, ln, p, j, window in plan:
         h = ly.rmsnorm(ln, x, eps=cfg.norm_eps)
@@ -222,6 +226,9 @@ def prefill_walk(params, cfg: ModelConfig, plan: list[Step], tokens, cache, mark
         elif kind == "attn":
             out, k, v = ly.attention(p, cfg, h, window=window)
             ly.fill_cache_from_prefill(k, v, cache["k"][j], cache["v"][j], cache["slot_pos"][j])
+        elif kind == "mla":
+            out, latent = mla.prefill(p, cfg, h)
+            cache["latent"][j][:, :latent.shape[1]] = latent
         elif kind == "mlp":
             out = ly.mlp(p, cfg, h)
         else:
@@ -231,7 +238,7 @@ def prefill_walk(params, cfg: ModelConfig, plan: list[Step], tokens, cache, mark
             marks.append((kind, obs.device_mark(x.device)))
     x = ly.rmsnorm(params["ln_f"], x, eps=cfg.norm_eps)
     S = tokens.shape[1]
-    if S < cfg.ssm_conv - 1:
+    if "mamba" in cache and S < cfg.ssm_conv - 1:
         cache["mamba"] = (None, *cache["mamba"][1:])
     cache["pos"] = torch.full((), S, dtype=torch.int32, device=x.device)
     return ly.logits(params["embedding"], cfg, x[:, -1:]), cache
@@ -241,10 +248,11 @@ def decode_walk(params, cfg: ModelConfig, plan: list[Step], token, cache):
     """token: (B, 1) int32 → (logits (B, 1, V) float32, cache), advancing
     ``cache`` in place: each Mamba2 layer's (conv_buf, S, n) written into
     its own slot (on a card the recurrent state element by element, in one
-    kernel), each attention's k, v and slot_pos, the counters added to;
-    only ``pos`` is new, advanced on the device. No host sync and no
-    data-dependent shape, so it may be captured as a CUDA graph."""
-    if cache["mamba"][0] is None:
+    kernel), each attention's k, v and slot_pos, each latent attention's
+    latent, the counters added to; only ``pos`` is new, advanced on the
+    device. No host sync and no data-dependent shape, so it may be
+    captured as a CUDA graph."""
+    if "mamba" in cache and cache["mamba"][0] is None:
         raise ValueError(
             f"{cfg.name}: the cache has no Mamba2 conv buffer (its prefill had fewer than "
             f"ssm_conv - 1 = {cfg.ssm_conv - 1} tokens), so no decode step can follow it")
@@ -258,6 +266,8 @@ def decode_walk(params, cfg: ModelConfig, plan: list[Step], token, cache):
         elif kind == "attn":
             out = ly.decode_attention(p, cfg, h, cache["k"][j], cache["v"][j],
                                       cache["slot_pos"][j], pos, window=window)
+        elif kind == "mla":
+            out = mla.decode(p, cfg, h, cache["latent"][j], pos)
         elif kind == "mlp":
             out = ly.mlp(p, cfg, h)
         else:

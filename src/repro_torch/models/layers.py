@@ -77,19 +77,49 @@ def rmsnorm(params, x, eps: float = 1e-6):
 # ---------------------------------------------------------------------------
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         inv_freq: torch.Tensor | None = None) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: (..., seq). The head splits
-    into halves (not interleaved pairs); angles are float32."""
+    into halves (not interleaved pairs); angles are float32. ``inv_freq``
+    (head_dim / 2 float32 frequencies, as :func:`yarn_inv_freq` gives them)
+    replaces theta^(−2i / head_dim)."""
     hd = x.shape[-1]
     half = hd // 2
-    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32, device=x.device)
-                      * (math.log(theta) / half))
+    freqs = inv_freq if inv_freq is not None else torch.exp(
+        -torch.arange(0, half, dtype=torch.float32, device=x.device) * (math.log(theta) / half))
     ang = positions[..., :, None].to(torch.float32) * freqs  # (..., seq, half)
     cos = torch.cos(ang)[..., :, None, :]  # (..., seq, 1, half)
     sin = torch.sin(ang)[..., :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature factor: 0.1 · mscale · ln(factor) + 1, or
+    1 where the context is not stretched."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def yarn_inv_freq(cfg: ModelConfig, dim: int, device) -> torch.Tensor:
+    """YaRN's (dim / 2) float32 rotary frequencies (arXiv:2309.00071, as
+    DeepSeek-V3 configures them): theta^(−2i / dim) for the fast dimensions
+    (i below the correction range, those that turn more than beta_fast
+    times over the original context), that divided by ``yarn_factor`` for
+    the slow ones (above it, fewer than beta_slow turns), and a linear ramp
+    between. Made on the device from ``arange``, so a captured step copies
+    nothing from the host."""
+    theta, orig = cfg.rope_theta, cfg.yarn_original
+
+    def dim_of(turns):
+        return dim * math.log(orig / (turns * 2 * math.pi)) / (2 * math.log(theta))
+
+    low = max(math.floor(dim_of(cfg.yarn_beta_fast)), 0)
+    high = min(math.ceil(dim_of(cfg.yarn_beta_slow)), dim - 1)
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)
+    extra = torch.exp(i * (-2 * math.log(theta) / dim))
+    ramp = ((i - low) / max(high - low, 1e-3)).clamp_(0.0, 1.0)
+    return extra * (1.0 - ramp * (1.0 - 1.0 / cfg.yarn_factor))
 
 
 # ---------------------------------------------------------------------------

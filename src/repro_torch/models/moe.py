@@ -154,7 +154,7 @@ def moe_mlp(params, cfg: ModelConfig, x: torch.Tensor, *, dropless: bool = False
 
 
 # ---------------------------------------------------------------------------
-# Expert-parallel layer with sort-based dispatch (the nemotron_h family)
+# Expert-parallel layer with sort-based dispatch (nemotron_h, deepseek_v3)
 # ---------------------------------------------------------------------------
 #
 # The router scores all ``cfg.n_router`` experts; this chip holds experts
@@ -175,30 +175,47 @@ COUNTERS = ("routed_pairs", "held_pairs", "held_experts_hit", "peak_expert_pairs
 def init_routed_moe(gen: torch.Generator, cfg: ModelConfig, device):
     """The float32 router over all ``cfg.n_router`` experts and its zero
     correction bias ``b_corr``, the held experts' (E, d, f) and (E, f, d)
-    stacks, and the shared expert (``cfg.shared_expert_ff`` wide), drawn on
-    ``device``."""
-    E, R, d, f = cfg.n_experts, cfg.n_router, cfg.d_model, cfg.d_ff
+    stacks (f = ``cfg.expert_ff``; with ``cfg.glu`` a gate stack ``wg``
+    beside ``wi``), and the shared expert (``cfg.shared_expert_ff`` wide,
+    gated alike), drawn on ``device``."""
+    E, R, d, f = cfg.n_experts, cfg.n_router, cfg.d_model, cfg.expert_ff
 
     def draw(shape, dtype):
         w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
         return (w / math.sqrt(shape[-2])).to(dtype)
 
     fs = cfg.shared_expert_ff
-    return {
+    p = {
         "router": draw((d, R), torch.float32),
         "b_corr": torch.zeros((R,), dtype=torch.float32, device=device),
         "wi": draw((E, d, f), dt(cfg)),
         "wo": draw((E, f, d), dt(cfg)),
         "shared": {"wi": draw((d, fs), dt(cfg)), "wo": draw((fs, d), dt(cfg))},
     }
+    if cfg.glu:
+        p["wg"] = draw((E, d, f), dt(cfg))
+        p["shared"]["wg"] = draw((d, fs), dt(cfg))
+    return p
 
 
 def route_sigmoid(params, cfg: ModelConfig, x: torch.Tensor):
     """x: (T, d) → (expert ids (T, K) over the router's width, weights (T, K)
     float32): the top K of sigmoid(x·router) + b_corr, weighted by their
-    sigmoid scores over the scores' sum, times ``cfg.routed_scale``."""
+    sigmoid scores over the scores' sum, times ``cfg.routed_scale``. With
+    ``cfg.n_group`` > 1 the top K come from the token's ``cfg.topk_group``
+    groups (of n_router / n_group consecutive experts) whose two best
+    scores + b_corr sum highest; the other groups' experts are out of the
+    choice (−inf)."""
     scores = torch.sigmoid(x.to(torch.float32) @ params["router"])
-    ids = torch.topk(scores + params["b_corr"], cfg.top_k, dim=-1).indices
+    choice = scores + params["b_corr"]
+    if cfg.n_group > 1:
+        T, R = choice.shape
+        grouped = choice.view(T, cfg.n_group, R // cfg.n_group)
+        best = grouped.topk(2, dim=-1).values.sum(-1)  # (T, n_group)
+        keep = torch.zeros_like(best, dtype=torch.bool).scatter_(
+            1, torch.topk(best, cfg.topk_group, dim=-1).indices, True)
+        choice = grouped.masked_fill(~keep[..., None], -math.inf).view(T, R)
+    ids = torch.topk(choice, cfg.top_k, dim=-1).indices
     w = torch.gather(scores, -1, ids)
     return ids, w / (w.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scale
 
@@ -233,7 +250,12 @@ def held_experts(params, cfg: ModelConfig, x: torch.Tensor, counters=None) -> to
         0, key, torch.ones_like(key))
     ends = torch.cumsum(counts[:E], 0, dtype=torch.int32)
     rows = x.index_select(0, order // K)  # (T·K, d): each pair's token, by expert
-    h = _act(cfg, grouped_mm(rows, params["wi"], ends).to(torch.float32)).to(x.dtype)
+    h = grouped_mm(rows, params["wi"], ends).to(torch.float32)
+    if cfg.glu:
+        h = _act(cfg, grouped_mm(rows, params["wg"], ends).to(torch.float32)) * h
+    else:
+        h = _act(cfg, h)
+    h = h.to(x.dtype)
     y = grouped_mm(h, params["wo"], ends)
     held = (key.index_select(0, order) < E)[:, None]
     y = torch.where(held, y.to(torch.float32) * w.reshape(-1).index_select(0, order)[:, None],
@@ -250,7 +272,12 @@ def held_experts(params, cfg: ModelConfig, x: torch.Tensor, counters=None) -> to
 def shared_expert(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x: (T, d) → the shared expert's (T, d) float32 output."""
     p = params["shared"]
-    h = _act(cfg, (x @ p["wi"]).to(torch.float32)).to(x.dtype)
+    h = (x @ p["wi"]).to(torch.float32)
+    if cfg.glu:
+        h = _act(cfg, (x @ p["wg"]).to(torch.float32)) * h
+    else:
+        h = _act(cfg, h)
+    h = h.to(x.dtype)
     return (h @ p["wo"]).to(torch.float32)
 
 

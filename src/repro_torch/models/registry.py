@@ -3,8 +3,9 @@
 Mirrors the reference package's ``repro/models/registry.py`` for all six
 families: dense, moe and vlm (:mod:`~repro_torch.models.lm`), encdec, ssm
 (:mod:`~repro_torch.models.xlstm`) and hybrid; and serves the port's own
-nemotron_h family (:mod:`~repro_torch.models.nemotron_h`), which
-:func:`arch_names` leaves out. Every entry exposes
+nemotron_h and deepseek_v3 families (:mod:`~repro_torch.models.nemotron_h`,
+:mod:`~repro_torch.models.deepseek_v3`), which :func:`arch_names` leaves
+out. Every entry exposes
 ``init(generator, device)``, ``train_loss(params, batch)``,
 ``prefill(params, batch, max_seq)``,
 ``decode_step(params, token, cache)``, ``init_cache(B, max_seq, device)``,
@@ -23,12 +24,12 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import encdec, hybrid, lm, nemotron_h, xlstm
+from repro_torch.models import deepseek_v3, encdec, hybrid, lm, nemotron_h, xlstm
 from repro_torch.models.config import SHAPES, ModelConfig, ShapeSpec, cell_is_runnable
 from repro_torch.tree import tree_map
 
 _FAMILY_MODULES = {**{family: lm for family in lm.FAMILIES}, "encdec": encdec, "ssm": xlstm,
-                   "hybrid": hybrid, "nemotron_h": nemotron_h}
+                   "hybrid": hybrid, "nemotron_h": nemotron_h, "deepseek_v3": deepseek_v3}
 
 
 def zero_extras(cfg: ModelConfig, tokens: torch.Tensor) -> dict:
@@ -76,7 +77,7 @@ class Arch:
         """Tokens-only prefill (fused-serving contract): (B, S) int32 tensor
         in, (logits, cache) out; the batch gets the zero non-token extras
         (vlm patches, encdec frames) on the tokens' device. ``kw`` goes to
-        the family's own (nemotron_h's ``marks``)."""
+        the family's own (nemotron_h's and deepseek_v3's ``marks``)."""
         return self.module.prefill(params, self.cfg, zero_extras(self.cfg, tokens), max_seq,
                                    **kw)
 

@@ -48,11 +48,11 @@ def test_port_imports_no_jax_and_no_reference_package():
         ("sched", ("", ".frontier", ".scan", ".sweep")),
         ("taskq", ("", ".engine", ".policies", ".sweep"))) for mod in mods])
     assert lines["LM"] == str([f"repro_torch.{pkg}{mod}" for pkg, mods in (
-        ("configs", ("", ".gemma2_2b", ".grok_1_314b", ".mistral_nemo_12b", ".mixtral_8x7b",
-                     ".nemotron3_nano_30b_a3b", ".pixtral_12b", ".qwen1_5_0_5b", ".whisper_base",
-                     ".xlstm_350m", ".yi_6b", ".zamba2_2_7b")),
-        ("models", ("", ".config", ".encdec", ".hybrid", ".layers", ".lm", ".moe",
-                    ".nemotron_h", ".registry", ".sharding", ".ssm", ".xlstm")))
+        ("configs", ("", ".deepseek_v3", ".gemma2_2b", ".grok_1_314b", ".mistral_nemo_12b",
+                     ".mixtral_8x7b", ".nemotron3_nano_30b_a3b", ".pixtral_12b", ".qwen1_5_0_5b",
+                     ".whisper_base", ".xlstm_350m", ".yi_6b", ".zamba2_2_7b")),
+        ("models", ("", ".config", ".deepseek_v3", ".encdec", ".hybrid", ".layers", ".lm",
+                    ".mla", ".moe", ".nemotron_h", ".registry", ".sharding", ".ssm", ".xlstm")))
         for mod in mods])
     assert lines["LAUNCH"] == str([f"repro_torch.launch{mod}" for mod in (
         "", ".dryrun", ".mesh", ".report", ".roofline", ".specs")])

@@ -303,11 +303,11 @@ def test_greedy_step_writes_every_buffer_in_place():
 
 
 def test_only_the_hybrid_family_declares_its_decode_step_capturable():
-    """The hybrid family, and the nemotron_h family that shares its
-    capture contract (a decode step that advances the bucket's buffers in
-    place)."""
+    """The hybrid family, and the nemotron_h and deepseek_v3 families that
+    share its capture contract (a decode step that advances the bucket's
+    buffers in place)."""
     assert [f for f, m in registry._FAMILY_MODULES.items()
-            if getattr(m, "CUDA_GRAPH_DECODE", False)] == ["hybrid", "nemotron_h"]
+            if getattr(m, "CUDA_GRAPH_DECODE", False)] == ["hybrid", "nemotron_h", "deepseek_v3"]
     for name in ("qwen1.5-0.5b", "zamba2-2.7b"):  # on the CPU no family replays
         arch = get(name, smoke=True)
         assert not ServingEngine(arch, arch.init(device=CPU)).uses_graphs
