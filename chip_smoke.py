@@ -677,6 +677,181 @@ def check_decode_attention(device) -> dict:
     return rec
 
 
+#: (B, H, Smax, positions) of the latent attention checks: DeepSeek-V3's
+#: decode cell (32 rows, 4,096 + 256 slots, 128 heads; pos 0 is one slot, 63
+#: two tiles, 4,096 the round's first step, 4,351 its last) and a ragged shape
+#: (80 heads: a block with 16; 1,000 slots: a partial last tile)
+LATENT_ATTENTION_SHAPES = {"deepseek_v3": (32, 128, 4352, (0, 63, 4096, 4351)),
+                           "ragged": (5, 80, 1000, (0, 517, 999))}
+
+
+def latent_err_over_bound(got, o64, bound) -> float:
+    """The largest |got − o64| / bound (0 where both are 0)."""
+    import torch
+
+    err = (got.double() - o64).abs()
+    return float(torch.where(err == 0, 0.0, err / bound).max())
+
+
+def check_latent_attention(device) -> dict:
+    """The latent attention kernel (K5) against the float64 P·c_kv of the
+    plain version's rounded p at :data:`LATENT_ATTENTION_SHAPES`
+    (``err_over_bound`` at most 1, the bound of
+    :func:`~repro_torch.kernels.attention.latent_attention.float64_reference`); at the
+    cell's shape and last position its time per call and replayed from a
+    graph, as a multiple of its bound (max of the latent up to pos at
+    3.35 TB/s and its operations at 989.4 TFLOP/s), the plain version's,
+    and ``scaled_dot_product_attention``'s over the same latent (one KV
+    head, v = the latent's first 512 channels: the library yardstick; the
+    port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention.latent_attention import (
+        VALUE_WIDTH, WIDTH, float64_reference, latent_attention, latent_attention_plain,
+        latent_counts)
+    from repro_torch.models import get, mla
+    from repro_torch.obs.profile import HBM_BW, PEAK_FLOPS
+
+    scale = mla.softmax_scale(get("deepseek-v3").cfg)
+    rec = {"cases": {}, "err_over_bound": 0.0}
+    for label, (B, H, Smax, positions) in LATENT_ATTENTION_SHAPES.items():
+        g = torch.Generator(device=device).manual_seed(0)
+        q = torch.randn((B, H, WIDTH), generator=g, device=device).bfloat16()
+        latent = torch.randn((B, Smax, WIDTH), generator=g, device=device).bfloat16()
+        out = torch.empty((B, H, VALUE_WIDTH), dtype=torch.bfloat16, device=device)
+        for pos in positions:
+            pos_t = torch.tensor(pos, dtype=torch.int32, device=device)
+            got = latent_attention(q, latent, pos_t, scale, out=out).clone()
+            o64, plain, bound, plain_err = float64_reference(q, latent, pos, scale)
+            ratio = latent_err_over_bound(got, o64, bound)
+            case = {"shape": [B, H, Smax], "pos": pos, "err_over_bound": ratio,
+                    "plain_err": plain_err, "equal_share": float((got == plain).float().mean())}
+            del o64, plain, bound
+            if label == "deepseek_v3" and pos == positions[-1]:
+                def kernel():
+                    return latent_attention(q, latent, pos_t, scale, out=out)
+
+                def plain_fn():
+                    return latent_attention_plain(q, latent, pos_t, scale)
+
+                # one KV head: the 128 heads as 128 queries of it, which is what
+                # enable_gqa computes without its copy of K and V for every head
+                q4 = q[:, None]
+                k4 = latent[:, None]
+                v4 = latent[:, None, :, :VALUE_WIDTH]
+                mask = (torch.arange(Smax, device=device) <= pos_t)[None, None, None]
+
+                def library():
+                    return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                          scale=scale)
+
+                ops, nbytes = latent_counts(B, H, pos + 1)
+                t_bytes, t_ops = nbytes / HBM_BW * 1e3, ops / PEAK_FLOPS * 1e3
+                case.update(bound_ms=max(t_bytes, t_ops),
+                            bound_by="bytes" if t_bytes >= t_ops else "operations",
+                            ms=median_ms(kernel), graph_ms=graph_ms(kernel),
+                            plain_ms=median_ms(plain_fn, reps=10),
+                            plain_graph_ms=graph_ms(plain_fn),
+                            library_ms=median_ms(library, reps=10),
+                            library_graph_ms=graph_ms(library))
+                print(f"[kernels] latent_attention (B, H, Smax) = {(B, H, Smax)}, pos {pos}: "
+                      f"{case['ms']:.4f} ms per call, {case['graph_ms']:.4f} ms replayed from "
+                      f"a graph; plain {case['plain_ms']:.4f} / {case['plain_graph_ms']:.4f} ms; "
+                      f"scaled_dot_product_attention {case['library_ms']:.4f} / "
+                      f"{case['library_graph_ms']:.4f} ms; bound {case['bound_ms']:.4f} ms "
+                      f"({case['bound_by']}); kernel = "
+                      f"{case['graph_ms'] / case['bound_ms']:.2f}x bound replayed", flush=True)
+            print(f"[kernels] latent_attention {label} (B, H, Smax) = {(B, H, Smax)}, pos {pos}: "
+                  f"off the float64 P.c_kv by {ratio:.4f} of its bound (plain's largest "
+                  f"distance {plain_err:.3g}), {case['equal_share']:.2%} of outputs equal to "
+                  f"the plain version's", flush=True)
+            rec["cases"][f"{label}@{pos}"] = case
+            rec["err_over_bound"] = max(rec["err_over_bound"], ratio)
+        del q, latent, out
+        torch.cuda.empty_cache()
+    rec["microbenchmark_launches"] = latent_attention.launches
+    if not rec["err_over_bound"] <= 1.0:
+        raise AssertionError(f"latent_attention is off the float64 P.c_kv by more than its "
+                             f"bound: {rec['cases']}")
+    return rec
+
+
+#: DeepSeek-V3's decode cell's stage at published widths: 16 layers (the 3
+#: dense, 13 with one EP32 GPU's 8 of 256 experts), 32 rows, the cell's
+#: 4,352 KV slots, 16-token prompts, 3 eager steps and as many replays
+DEEPSEEK_DECODE = {"layers": 16, "rows": 32, "max_seq": 4352, "prompt": 16, "steps": 3}
+
+
+def run_deepseek_decode(device) -> dict:
+    """The latent attention kernel (K5) on the path it serves: DeepSeek-V3's
+    decode at :data:`DEEPSEEK_DECODE`. Its launch counter is zeroed after
+    the prefill and counted by path (``rec["launches_by_path"]``): eager
+    steps, a :class:`DecodeBucket`'s capture (its warm-up steps and the
+    captured one), and replays of the captured step. Each eager or captured
+    step must launch K5 once a layer and a replay not at all (the graph
+    launches it, not the host); each replay's logits must equal the eager
+    step's at the same position bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.attention.latent_attention import latent_attention
+    from repro_torch.models import get
+    from repro_torch.models.registry import Arch
+    from repro_torch.serve.engine import DecodeBucket
+    from repro_torch.tree import tree_map
+
+    layers, rows, steps = (DEEPSEEK_DECODE[k] for k in ("layers", "rows", "steps"))
+    base = get("deepseek-v3")
+    arch = Arch(dataclasses.replace(base.cfg, n_layers=layers, n_experts=8,
+                                    router_experts=256), base.module)
+    t0 = time.monotonic()
+    params = arch.init(torch.Generator(device=device).manual_seed(0))
+    toks = torch.randint(0, arch.cfg.vocab, (rows, DEEPSEEK_DECODE["prompt"]), device=device,
+                         dtype=torch.int32, generator=torch.Generator(device=device).manual_seed(1))
+    logits, cache = arch.prefill_tokens(params, toks, max_seq=DEEPSEEK_DECODE["max_seq"])
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    pristine = tree_map(torch.clone, cache)
+
+    latent_attention.launches = 0
+    by_path = {}
+    eager, t, c = [], tok, cache
+    for _ in range(steps):
+        lg, c = arch.decode_step(params, t, c)
+        eager.append(lg.clone())
+        t = torch.argmax(lg, dim=-1).to(torch.int32)
+    by_path["[deepseek] eager"] = latent_attention.launches
+    bucket = DecodeBucket(arch, params, tok, pristine)
+    before = latent_attention.launches
+    bucket.capture(torch.cuda.graph_pool_handle())
+    by_path["[deepseek] capture"] = latent_attention.launches - before
+    bucket.load(tok, pristine)
+    before = latent_attention.launches
+    replayed = [bucket.step().clone() for _ in range(steps)]
+    torch.cuda.synchronize(device)
+    by_path["[deepseek] replay"] = latent_attention.launches - before
+    equal = [bool(torch.equal(a, b)) for a, b in zip(eager, replayed)]
+    need = {"[deepseek] eager": layers * steps,
+            "[deepseek] capture": layers * (DecodeBucket.WARMUP + 1),
+            "[deepseek] replay": 0}
+    rec = {"launches": latent_attention.launches, "launches_by_path": by_path,
+           "replay_equals_eager": equal, "wall_s": time.monotonic() - t0}
+    print(f"[deepseek] decode at {layers} layers, {rows} rows, {DEEPSEEK_DECODE['max_seq']} "
+          f"slots: latent attention launches by path {by_path} (need {layers} a step: "
+          f"{need}); replayed logits equal to the eager steps' {equal}; "
+          f"{rec['wall_s']:.1f} s wall", flush=True)
+    del arch, params, logits, cache, pristine, c, eager, replayed, bucket
+    _empty_cache(device)
+    if by_path != need:
+        raise AssertionError(f"latent_attention launched {by_path} times on DeepSeek-V3's "
+                             f"decode, want {need}: a step lacks a layer's launch")
+    if not all(equal):
+        raise AssertionError(f"DeepSeek-V3's replayed decode steps differ from the eager "
+                             f"steps: {equal}")
+    return rec
+
+
 def run_k2_path(device, *, strip_bytes: int = FILE_BYTES // K_MAX, seed: int = 0) -> dict:
     """K2's documented use through its entry point: the parity bitplanes of
     one object, C2 = G2 @ D2 mod 2, for the (12, 6) code over LSB-first
@@ -2709,7 +2884,9 @@ def main() -> int:
     k2 = check_k2(device)
     mamba2_step_rec = check_mamba2_step(device)
     decode_attention_rec = check_decode_attention(device)
-    for name in ("mamba2_step", "decode_attention"):
+    latent_attention_rec = check_latent_attention(device)
+    deepseek_rec = run_deepseek_decode(device)
+    for name in ("mamba2_step", "decode_attention", "latent_attention"):
         info = build.BUILD_INFO[name]
         print(f"[build] {name} nvcc {info['seconds']:.2f} s -> {info['path']}", flush=True)
         for line in info["log"].splitlines():
@@ -2867,6 +3044,17 @@ def main() -> int:
         "err_over_bound": decode_attention_rec["err_over_bound"],
         "library_call": "torch.nn.functional.scaled_dot_product_attention",
         "cases": decode_attention_rec["cases"],
+    }, {
+        "name": "latent_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/attention/csrc/latent_attention.cu",
+        "replaces": None,
+        "launches": deepseek_rec["launches"],
+        "launches_by_path": deepseek_rec["launches_by_path"],
+        "microbenchmark_launches": latent_attention_rec["microbenchmark_launches"],
+        "err_over_bound": latent_attention_rec["err_over_bound"],
+        "library_call": "torch.nn.functional.scaled_dot_product_attention",
+        "cases": latent_attention_rec["cases"],
     }]}
     print(nvidia_smi_line(), flush=True)
     print(json.dumps(kernels), flush=True)

@@ -21,8 +21,10 @@ absorbed form, where W_UK and W_UV (W_kvb's key and value columns) move to
 the query and the output: q_lat = q_nope W_UKᵀ, scores against the cached
 [c_kv, k_pe], P c_kv, then W_UV and W_o. Scores and softmax are float32 in
 both forms; the products take bfloat16 operands with float32 sums on the
-card (:func:`repro_torch.models.moe.bmm_f32`), so the decode step reads
-the bfloat16 cache in place with no wider copy of it.
+card (:func:`repro_torch.kernels.products.bmm_f32`). The decode step's attention
+body, from the scores through P c_kv, is one hand-written kernel on the card
+(:func:`repro_torch.kernels.attention.latent_attention.latent_attention`),
+which reads the bfloat16 cache in place, once, and writes no score tensor.
 
 W_kvb is kept (kv_rank, H · (nope + v)): a plain product for the prefill,
 and for the decode its per-head blocks are strided views the batched
@@ -38,10 +40,10 @@ import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
-from repro_torch.kernels.attention.decode_attention import MASKED
+from repro_torch.kernels.attention.latent_attention import latent_attention
+from repro_torch.kernels.products import bmm_f32
 from repro_torch.models import layers as ly
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.moe import bmm_f32
 
 
 def init_mla(gen: torch.Generator, cfg: ModelConfig, device):
@@ -126,21 +128,19 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> t
 
 
 def absorbed_attention(params, cfg: ModelConfig, q_nope: torch.Tensor, q_pe: torch.Tensor,
-                       latent: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+                       latent: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """One query a row, absorbed: q_nope (B, H, nope) and roped q_pe (B, H,
-    rope) against the cached latent (B, Smax, kv_rank + rope), where
-    ``valid`` (Smax,) marks the slots that hold a position up to the
-    query's → (B, H, v) float32, before W_o."""
+    rope) against the cached latent (B, Smax, kv_rank + rope) at slots
+    0..``pos`` (0-d int32, on the latent's device) → (B, H, v) float32,
+    before W_o."""
     H, dn, kvr = cfg.n_heads, cfg.mla_nope_dim, cfg.mla_kv_rank
     w = params["wkv_b"].view(kvr, H, -1)
     w_uk = w[:, :, :dn].permute(1, 2, 0)  # (H, nope, kv_rank)
     w_uv = w[:, :, dn:].transpose(0, 1)  # (H, kv_rank, v)
     q_lat = bmm_f32(q_nope.transpose(0, 1), w_uk).to(latent.dtype).transpose(0, 1)
-    s = bmm_f32(torch.cat([q_lat, q_pe.to(latent.dtype)], dim=-1), latent.transpose(1, 2))
-    s = s.mul_(softmax_scale(cfg)).masked_fill_(~valid, MASKED)
-    p = torch.softmax(s, dim=-1)
-    o_lat = bmm_f32(p.to(latent.dtype), latent[..., :kvr])  # (B, H, kv_rank)
-    return bmm_f32(o_lat.to(latent.dtype).transpose(0, 1), w_uv).transpose(0, 1)
+    q = torch.cat([q_lat, q_pe.to(latent.dtype)], dim=-1)
+    o_lat = latent_attention(q, latent, pos, softmax_scale(cfg), value_width=kvr)
+    return bmm_f32(o_lat.transpose(0, 1), w_uv).transpose(0, 1)
 
 
 def decode(params, cfg: ModelConfig, x: torch.Tensor, latent: torch.Tensor,
@@ -153,6 +153,5 @@ def decode(params, cfg: ModelConfig, x: torch.Tensor, latent: torch.Tensor,
     positions = pos.to(torch.int32).reshape(1, 1).expand(B, 1)
     q_nope, q_pe, new = project(params, cfg, x, positions)
     latent.index_copy_(1, pos.reshape(1).to(torch.int64), new)
-    valid = torch.arange(latent.shape[1], device=x.device) <= pos
-    o = absorbed_attention(params, cfg, q_nope[:, 0], q_pe[:, 0], latent, valid)
+    o = absorbed_attention(params, cfg, q_nope[:, 0], q_pe[:, 0], latent, pos)
     return o.reshape(B, 1, -1).to(x.dtype) @ params["wo"]

@@ -136,8 +136,8 @@ def test_absorbed_decode_equals_decompressed_attention_on_the_same_cache():
     latent = torch.randn((B, Smax, r + dr), generator=gen)
     q_nope = torch.randn((B, H, dn), generator=gen)
     q_pe = torch.randn((B, H, dr), generator=gen)
-    valid = torch.arange(Smax) <= pos
-    got = mla.absorbed_attention(p, cfg, q_nope, q_pe, latent, valid)
+    got = mla.absorbed_attention(p, cfg, q_nope, q_pe, latent,
+                                 torch.tensor(pos, dtype=torch.int32))
     w = p["wkv_b"].double().view(r, H, dn + dv)
     lat = latent.double()[:, :pos + 1]
     k = torch.cat([torch.einsum("bsc,chd->bshd", lat[..., :r], w[..., :dn]),

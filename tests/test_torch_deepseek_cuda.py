@@ -74,7 +74,8 @@ def test_replayed_decode_equals_eager_at_published_widths(cuda):
 def test_a_decode_step_reads_the_latent_cache_in_place(cuda):
     """At 32 rows and 4,352 slots a layer's latent is 160 MB of bfloat16; a
     float32 copy of it would be 321 MB. An eager step's allocations peak
-    below that: the scores, the softmax and the products' outputs."""
+    below that: the projections' and the experts' outputs and the latent
+    attention's float32 partials; no tensor of every slot's scores."""
     arch = _arch()
     params = arch.init(torch.Generator(device=cuda).manual_seed(2))
     B, S, max_seq = 32, 64, 4352

@@ -25,6 +25,7 @@ from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.roofline import collective_bytes
 from repro_torch.launch.specs import cell_rules, collective_plan, dryrun_target
 from repro_torch.models import ShapeSpec, get, ssm
+from repro_torch.kernels import products
 from repro_torch.models import moe
 from repro_torch.models.registry import Arch
 from repro_torch.obs import count_work
@@ -60,7 +61,7 @@ def test_bmm_dtype_is_counted_on_meta_on_the_cards_branch():
     E, M, K, N = 4, 6, 8, 5
     a = torch.empty((E, M, K), dtype=torch.bfloat16, device="meta")
     b = torch.empty((E, K, N), dtype=torch.bfloat16, device="meta")
-    flops, nbytes = count_work(moe._BmmF32.apply, a, b)
+    flops, nbytes = count_work(products._BmmF32.apply, a, b)
     assert flops == 2 * E * M * N * K
     # bmm_f32 on meta takes the card's branch: the bfloat16 operands are
     # read once, the float32 product written once, nothing widened.
